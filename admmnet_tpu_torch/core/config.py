@@ -1,0 +1,198 @@
+"""Typed configuration of the classical pipeline.
+
+Same dataclasses, fields, defaults and validation as
+``admmnet_tpu.core.config`` (the JAX reference), so a configuration moves
+between the two packages through ``to_json``/``from_json`` or
+``core.convert.options_from_jax``.  Pure Python: nothing here depends on a
+framework.
+
+Axis-naming convention:
+
+- ``delay`` axis: tau in [0, 1), resolved by the ``Nd`` within-block symbol
+  axis; atom factor ``d(tau) = exp(2j pi tau * [0..Nd-1])``.
+- ``doppler`` axis: f in [-0.5, 0.5), resolved by the ``Nb`` OFDM-block axis;
+  atom factor ``s(f) = exp(2j pi f * [0..Nb-1])``.
+- flattened atom: ``a(tau, f) = kron(s(f), conj(d(tau)))`` with layout index
+  ``m * Nd + k`` (m = block, k = symbol).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class ProblemSpec:
+    """Dimensions of one recovery instance."""
+
+    Nb: int = 10  # number of OFDM blocks (doppler axis length)
+    Nd: int = 10  # data symbols per block (delay axis length)
+    L_max: int = 3  # maximum number of targets
+
+    @property
+    def n(self) -> int:
+        """Flattened problem size MN = Nb * Nd."""
+        return self.Nb * self.Nd
+
+    @property
+    def lifted(self) -> int:
+        """Side of the lifted PSD matrix G: MN + 1."""
+        return self.n + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMMOptions:
+    """Classical-solver knobs.
+
+    ``phi_update``: ``"diag"`` (the diagonal phi-update) or ``"ref_dense"``
+    (the reference's ``D^-1 + rho*11^T`` broadcasting quirk, solved
+    closed-form by Sherman-Morrison).
+
+    ``g_update`` selects the PSD step: ``"eigh"`` (exact projection),
+    ``"polar"`` / ``"polar_fast"`` (matrix-sign schedules through the polar
+    kernel, accurate / fast mode), ``"fused_fast"`` / ``"fused_exact"`` (the
+    whole fixed-iteration solve in one kernel, detection-grade /
+    phi-faithful contract), ``"newton_schulz"`` (cubic matrix-sign
+    iteration) and ``"ref_identity"`` (the reference's SVD step, which is
+    the identity on a Hermitian matrix).
+    """
+
+    rho: float = 1.0
+    max_iter: int = 100
+    eta_abs: float = 1e-7
+    eta_rel: float = 1e-7
+    use_min_iter: bool = True
+    min_iter: int = 5
+    phi_update: str = "diag"  # "diag" | "ref_dense"
+    g_update: str = "eigh"  # see the class docstring for the choices
+    newton_schulz_iters: int = 24
+    # polar_fast / fused_fast: 1 appends the POLAR_BF16_POLISH step as a
+    # "hi" step (no Hermitian re-projection after it)
+    polar_fast_hi_steps: int = 0
+    # JAX-only knob (bf16 iterate storage); the port raises on True
+    polar_bf16_store: bool = False
+    # fused_fast contract (detection grade; the production point):
+    #   fused_kblk: instances interleaved per TPU program.  No effect on
+    #     Hopper, where each instance is one thread block; kept so the
+    #     configuration round-trips through JSON.
+    #   fused_proj_iters / fused_inner_iters: bisection / Newton-waterline
+    #     depths of the in-kernel H-projection.
+    #   fused_schedule: PSD sign schedule ("full" = POLAR_BF16_SCHEDULE,
+    #     "sched3" / "sched2" = shortened refits at a larger eigenvalue
+    #     write-off).
+    #   fused_final_hi: run the closing |M| products as "hi" products.
+    #   fused_layout: "lean" (the only layout ported) or "lists".
+    #   fused_unroll: loop unroll of the TPU kernel; only 1 is ported.
+    #   fused_fold_diag: carry diag(A) and row n of the |M| product instead
+    #     of the G planes (required by the port).
+    #   fused_warm_root: carry the bisection bracket across iterations.
+    # The 2-step outer depth is certified only jointly with
+    # fused_warm_root=True; with a cold bracket use fused_proj_iters >= 3.
+    fused_kblk: int = 32
+    fused_proj_iters: int = 2
+    fused_inner_iters: int = 2
+    fused_schedule: str = "sched2"  # "full" | "sched3" | "sched2"
+    fused_final_hi: bool = False
+    fused_layout: str = "lean"
+    fused_unroll: int = 1
+    fused_fold_diag: bool = True
+    fused_warm_root: bool = True
+    # fused_exact contract (phi-faithful): every schedule step is a "hi"
+    # step with the minimax quintic schedule, a cold deep root-finder, and
+    # (three_pass) split-bf16 3-pass products for the hi products.
+    fused_exact_schedule: str = "quintic7"  # "quintic5" | "quintic7"
+    fused_exact_proj_iters: int = 16
+    fused_exact_inner_iters: int = 8
+    fused_exact_warm_root: bool = False
+    fused_exact_three_pass: bool = True
+
+    def __post_init__(self):
+        if self.phi_update not in ("diag", "ref_dense"):
+            raise ValueError(f"unknown phi_update {self.phi_update!r}")
+        if self.g_update not in ("eigh", "polar", "polar_fast", "fused_fast",
+                                 "fused_exact", "newton_schulz",
+                                 "ref_identity"):
+            raise ValueError(f"unknown g_update {self.g_update!r}")
+        if self.fused_exact_schedule not in ("quintic5", "quintic7"):
+            raise ValueError(
+                f"unknown fused_exact_schedule {self.fused_exact_schedule!r}"
+            )
+        if self.fused_schedule not in ("full", "sched3", "sched2"):
+            raise ValueError(f"unknown fused_schedule {self.fused_schedule!r}")
+        if self.fused_layout not in ("lean", "lists"):
+            raise ValueError(f"unknown fused_layout {self.fused_layout!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PeakSearchConfig:
+    """Coarse-to-fine 2-D spectral peak search knobs.
+
+    ``max_peaks`` candidate peaks are returned per instance (sorted by
+    height, padded with -inf).  Refinement round r scans a
+    ``refine_points``^2 window spanning +-step_{r-1} at spacing
+    step_r = reduce_factor * step_{r-1} around the current estimate.
+
+    ``refine_precision`` ("highest" | "default") names the matmul precision
+    of the refine einsums in the JAX package.  The port evaluates both in
+    float32.
+    """
+
+    delay_min: float = 0.0
+    delay_max: float = 1.0
+    delay_step: float = 0.01
+    doppler_min: float = -0.5
+    doppler_max: float = 0.5
+    doppler_step: float = 0.01
+    reduce_factor: float = 0.1
+    refine_iters: int = 3
+    refine_points: int = 11  # points per axis per refinement round
+    max_peaks: int = 16
+    refine_precision: str = "highest"
+
+    def __post_init__(self):
+        if self.refine_precision not in ("highest", "default"):
+            raise ValueError(
+                f"unknown refine_precision {self.refine_precision!r}"
+            )
+        # zoom-coverage invariant (class docstring): each round's span must
+        # cover the previous round's quantization error
+        if self.refine_points < 1.0 / self.reduce_factor + 1.0 - 1e-9:
+            raise ValueError(
+                f"refine_points {self.refine_points} < 1/reduce_factor + 1 "
+                f"({1.0 / self.reduce_factor + 1.0:g}): the refinement zoom "
+                "cannot cover the previous round's quantization error"
+            )
+
+
+# Gated deployment point of the classical pipeline: a fixed 10-iteration
+# solve budget for detection-only use (not for phi-faithful work), and the
+# peak search with 2 refine rounds.
+DETECTION_BUDGET_ITERS = 10
+
+PRODUCTION_PEAKS = PeakSearchConfig(
+    max_peaks=8, refine_iters=2, refine_precision="default"
+)
+
+
+def to_json(cfg: Any) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in fields:
+            continue
+        if isinstance(v, dict) and "Nb" in v:
+            v = ProblemSpec(**v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def from_json(cls, s: str):
+    return _from_dict(cls, json.loads(s))

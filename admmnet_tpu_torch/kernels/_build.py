@@ -1,0 +1,114 @@
+"""Build the CUDA kernels of ``csrc/`` and load them with ctypes.
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one shared
+library with a plain C interface, named by a hash of the sources, under
+``build/kernels/`` at the repository root.  The build runs at the first
+kernel launch of a process, never at import, so the package imports on a
+machine without CUDA.  Two processes building at once each write a
+temporary file and rename it into place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+SIGNATURES = {
+    # Mr, Mi, Pr, Pi, scratch, B, P, coeffs, nsteps, hi_steps, stream
+    "polar_psd_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
+    # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,
+    # lam_inv_sq, coeffs, nsteps, hi_steps, outer_iters, inner_iters,
+    # final_hi, warm_root, all_hi, three_pass, stream
+    "fused_admm_fast_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
+        _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of this process's build, None if cached
+build_log = ""  # nvcc's report (registers, shared memory, spills)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libadmmnet_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for their hash exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    build_seconds = time.time() - t0
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

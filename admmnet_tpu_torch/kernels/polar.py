@@ -1,0 +1,200 @@
+"""Polar PSD projection kernel: P = (M + |M|)/2 through a matrix-sign schedule.
+
+Counterpart of ``admmnet_tpu/kernels/polar.py :: psd_project_polar_pallas``.
+``psd_project_polar_kernel`` launches the CUDA kernel of ``csrc/polar.cu``
+for a CUDA tensor and runs ``psd_project_polar_plain`` (the same dataflow
+in batched torch ops) for a CPU tensor.
+
+Modes, as in the JAX package:
+
+- ``mode="accurate"``: the 7-step ``POLAR_QUINTIC_SCHEDULE``, every step
+  "hi" (no Hermitian re-projection).
+- ``mode="fast"``: the 6-step ``POLAR_BF16_SCHEDULE``, re-projected onto the
+  Hermitian subspace after every step that is not "hi"; ``hi_steps=1``
+  appends ``POLAR_BF16_POLISH`` as a hi step.
+
+Every product is IEEE fp32 in both the kernel and the plain version (what
+the JAX kernel computes in interpret mode); the closing |M| products
+likewise.  The matrices are zero-padded to P = 112 (m <= 112) or P = 128
+(m <= 128) in the kernel; zero eigenvalues are fixed points of every
+schedule, so the padding is exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from admmnet_tpu_torch.ops.projections import (
+    POLAR_BF16_POLISH,
+    POLAR_BF16_SCHEDULE,
+    POLAR_QUINTIC_SCHEDULE,
+)
+
+MAX_SIDE = 128
+SCRATCH_PLANES = 7
+
+
+class LaunchCounter:
+    """Plain count of kernel launches (one per launched batch)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def reset(self):
+        self.count = 0
+
+
+launches = LaunchCounter()
+
+
+def padded_side(m: int) -> int:
+    """Plane side of the kernel for a logical side m (112 or 128)."""
+    if m > MAX_SIDE:
+        raise ValueError(f"matrix side {m} exceeds {MAX_SIDE}")
+    return 112 if m <= 112 else 128
+
+
+def schedule_for(mode: str, hi_steps):
+    """(schedule, hi_steps) of a mode, as the JAX wrapper resolves them."""
+    if mode == "fast":
+        hi_steps = 0 if hi_steps is None else hi_steps
+        schedule = POLAR_BF16_SCHEDULE + ((POLAR_BF16_POLISH,) if hi_steps >= 1 else ())
+    elif mode == "accurate":
+        schedule = POLAR_QUINTIC_SCHEDULE
+        hi_steps = len(schedule) if hi_steps is None else hi_steps
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return tuple(schedule), int(hi_steps)
+
+
+# ---- plain version: the kernel's dataflow in batched torch ops -------------
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """fp32 product, or the 3-pass split-bf16 product ah bh + ah bl + al bh
+    (x = xh + xl, xh = bf16_rn(x), xl = x - xh in fp32)."""
+    if not split:
+        return a @ b
+    ah = a.to(torch.bfloat16).to(torch.float32)
+    bh = b.to(torch.bfloat16).to(torch.float32)
+    return ah @ bh + ah @ (b - bh) + (a - ah) @ bh
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def herm_square(Xr, Xi, split):
+    """X^2 of Hermitian X in 3 real products: X2i = XrXi - (XrXi)^T."""
+    XrXi = mm(Xr, Xi, split)
+    return mm(Xr, Xr, split) - mm(Xi, Xi, split), XrXi - _t(XrXi)
+
+
+def karatsuba(Ar, Ai, Br, Bi, split):
+    """(Ar + i Ai)(Br + i Bi) in 3 real products."""
+    t1 = mm(Ar, Br, split)
+    t2 = mm(Ai, Bi, split)
+    t3 = mm(Ar + Ai, Br + Bi, split)
+    return t1 - t2, t3 - t1 - t2
+
+
+def frobenius_inv(Mr, Mi):
+    s = torch.sum(Mr * Mr, dim=(-1, -2), keepdim=True) + torch.sum(
+        Mi * Mi, dim=(-1, -2), keepdim=True
+    )
+    return 1.0 / torch.clamp_min(torch.sqrt(s), 1e-30)
+
+
+def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False):
+    """Apply the sign schedule to the scaled iterate X.  Step s is "hi" iff
+    all_hi or s >= nsteps - hi_steps; hi products are split iff three_pass;
+    the iterate is re-projected after a step iff it is not hi or three_pass."""
+    nsteps = len(schedule)
+    eye = torch.eye(Xr.shape[-1], dtype=Xr.dtype, device=Xr.device)
+    for s, (a, b, c) in enumerate(schedule):
+        hi = all_hi or s >= nsteps - hi_steps
+        split = hi and three_pass
+        X2r, X2i = herm_square(Xr, Xi, split)
+        X4r, X4i = herm_square(X2r, X2i, split)
+        Yr = a * eye + b * X2r + c * X4r
+        Yi = b * X2i + c * X4i
+        Xr, Xi = karatsuba(Xr, Xi, Yr, Yi, split)
+        if not hi or three_pass:
+            Xr = 0.5 * (Xr + _t(Xr))
+            Xi = 0.5 * (Xi - _t(Xi))
+    return Xr, Xi
+
+
+def abs_product(Xr, Xi, Mr, Mi, split):
+    """A = Hermitian part of S M, S the sign iterate: |M| in M's scale."""
+    Ar, Ai = karatsuba(Xr, Xi, Mr, Mi, split)
+    return 0.5 * (Ar + _t(Ar)), 0.5 * (Ai - _t(Ai))
+
+
+def psd_project_polar_plain(M: torch.Tensor, mode: str = "accurate",
+                            hi_steps=None) -> torch.Tensor:
+    """The kernel's computation in torch ops; complex64 (..., m, m) in/out."""
+    schedule, hi_steps = schedule_for(mode, hi_steps)
+    Mr = M.real.to(torch.float32)
+    Mi = M.imag.to(torch.float32)
+    inv = frobenius_inv(Mr, Mi)
+    Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps)
+    Ar, Ai = abs_product(Xr, Xi, Mr, Mi, False)
+    Pr = 0.5 * (Mr + Ar)
+    Pi = 0.5 * (Mi + Ai)
+    return torch.complex(0.5 * (Pr + _t(Pr)), 0.5 * (Pi - _t(Pi)))
+
+
+# ---- the kernel -------------------------------------------------------------
+
+
+def _check_matrix(M: torch.Tensor) -> int:
+    if M.dtype != torch.complex64:
+        raise TypeError(f"expected complex64, got {M.dtype}")
+    if M.dim() < 2 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"expected (..., m, m), got {tuple(M.shape)}")
+    return padded_side(M.shape[-1])
+
+
+def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
+                             hi_steps=None) -> torch.Tensor:
+    """PSD projection of batched Hermitian complex64 (..., m, m), m <= 128.
+
+    A CUDA tensor launches the CUDA kernel (one thread block per matrix); a
+    CPU tensor runs ``psd_project_polar_plain``.  Any other device raises.
+    """
+    P = _check_matrix(M)
+    if M.device.type == "cpu":
+        return psd_project_polar_plain(M, mode, hi_steps)
+    if M.device.type != "cuda":
+        raise ValueError(f"unsupported device {M.device}")
+    if not M.is_contiguous():
+        raise ValueError("expected a contiguous tensor")
+    from admmnet_tpu_torch.kernels import _build
+
+    schedule, hi_steps = schedule_for(mode, hi_steps)
+    batch_shape, m = M.shape[:-2], M.shape[-1]
+    Mf = M.reshape(-1, m, m)
+    B = Mf.shape[0]
+    if B == 0:
+        return M.clone()
+    pad = (0, P - m, 0, P - m)
+    Mr = torch.nn.functional.pad(Mf.real, pad).contiguous()
+    Mi = torch.nn.functional.pad(Mf.imag, pad).contiguous()
+    Pr = torch.empty_like(Mr)
+    Pi = torch.empty_like(Mi)
+    scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32,
+                          device=M.device)
+    coeffs = np.ascontiguousarray(schedule, dtype=np.float32)
+    lib = _build.lib()
+    with torch.cuda.device(M.device):
+        err = lib.polar_psd_launch(
+            Mr.data_ptr(), Mi.data_ptr(), Pr.data_ptr(), Pi.data_ptr(),
+            scratch.data_ptr(), B, P, coeffs.ctypes.data, len(schedule), hi_steps,
+            torch.cuda.current_stream(M.device).cuda_stream,
+        )
+    _build.check(err, "polar_psd_launch")
+    launches.count += 1
+    out = torch.complex(Pr[:, :m, :m], Pi[:, :m, :m])
+    return out.reshape(*batch_shape, m, m)

@@ -1,0 +1,118 @@
+"""Vectorized coarse-to-fine 2-D peak search.
+
+- the coarse sweep is the separable spectrum (``peaks.spectrum``);
+- local maxima are a 3x3 max-pool equality with -inf padding
+  (``F.max_pool2d`` pads implicitly with -inf), borders allowed;
+- the data-dependent peak count becomes a fixed ``max_peaks`` top-K with a
+  validity mask (padded entries carry height -inf);
+- refinement runs ``refine_iters`` rounds of a P x P local-grid argmax per
+  peak, all peaks and instances at once; round r has half-width
+  step * reduce_factor^r.  Results are sorted by height, descending.
+
+``refine_precision`` "highest" and "default" both evaluate the refine
+products in float32 here (the JAX package maps "default" to one-pass bf16
+on the TPU); the bf16 / TF32 remap is queued in ROADMAP.md.  Ties in the
+top-K may be ordered differently from ``lax.top_k``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from admmnet_tpu_torch.core.config import PeakSearchConfig
+from admmnet_tpu_torch.ops.atoms import delay_steering, doppler_steering
+from admmnet_tpu_torch.peaks.spectrum import spectrum_grid
+
+
+class PeakResult(NamedTuple):
+    tau: torch.Tensor  # (..., K) delay estimates
+    f: torch.Tensor  # (..., K) doppler estimates
+    height: torch.Tensor  # (..., K) spectrum heights, -inf for padding
+    valid: torch.Tensor  # (..., K) bool
+
+
+def _coarse_axes(cfg: PeakSearchConfig):
+    taus = np.arange(cfg.delay_min, cfg.delay_max, cfg.delay_step, dtype=np.float32)
+    # exclude the aliasing endpoint tau = delay_max (= delay_min mod 1)
+    if taus.size and abs((taus[-1] - cfg.delay_min) % 1.0) < 1e-9:
+        taus = taus[:-1]
+    fs = np.arange(cfg.doppler_min, cfg.doppler_max, cfg.doppler_step, dtype=np.float32)
+    return taus, fs
+
+
+def _local_max_mask(Z: torch.Tensor) -> torch.Tensor:
+    """8-neighborhood local maxima of (B, ny, nx), borders allowed."""
+    pooled = F.max_pool2d(Z[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
+    return Z >= pooled
+
+
+def _refine(phi, tau0, f0, cfg: PeakSearchConfig, Nb: int, Nd: int):
+    """Fixed-round local zoom.  phi: (B, n); tau0/f0: (B, K)."""
+    P = cfg.refine_points
+    Phi = torch.conj(phi).reshape(phi.shape[0], 1, Nb, Nd)
+    rel = torch.linspace(-1.0, 1.0, P, dtype=torch.float32, device=phi.device)
+    tau, f = tau0, f0
+    height = None
+    half_t = cfg.delay_step
+    half_f = cfg.doppler_step
+    for _ in range(cfg.refine_iters):
+        taus = torch.clamp(tau[..., None] + half_t * rel, cfg.delay_min,
+                           cfg.delay_max - 1e-6)  # (B, K, P)
+        fs = torch.clamp(f[..., None] + half_f * rel, cfg.doppler_min,
+                         cfg.doppler_max - 1e-6)
+        S = doppler_steering(fs, Nb)  # (B, K, P, Nb)
+        Dc = torch.conj(delay_steering(taus, Nd))  # (B, K, P, Nd)
+        Zl = torch.abs(S @ Phi @ Dc.transpose(-1, -2)) ** 2  # (B, K, P, P)
+        flat = Zl.reshape(*Zl.shape[:-2], P * P)
+        idx = torch.argmax(flat, dim=-1)
+        height = torch.gather(flat, -1, idx[..., None])[..., 0]
+        f = torch.gather(fs, -1, (idx // P)[..., None])[..., 0]
+        tau = torch.gather(taus, -1, (idx % P)[..., None])[..., 0]
+        half_t *= cfg.reduce_factor
+        half_f *= cfg.reduce_factor
+    return tau, f, height
+
+
+def find_peaks(phi: torch.Tensor, Nb: int, Nd: int,
+               cfg: PeakSearchConfig = PeakSearchConfig()) -> PeakResult:
+    """Coarse-to-fine peak search on batched phi (..., Nb*Nd).
+
+    Returns PeakResult with K = cfg.max_peaks entries per instance, sorted
+    by height descending; invalid (padding) entries have height -inf.
+    """
+    batch_shape = phi.shape[:-1]
+    phi2 = phi.reshape(-1, phi.shape[-1])
+    B = phi2.shape[0]
+    K = cfg.max_peaks
+    dev = phi.device
+
+    taus_np, fs_np = _coarse_axes(cfg)
+    nx, ny = taus_np.size, fs_np.size
+    taus_ax = torch.from_numpy(taus_np).to(dev)
+    fs_ax = torch.from_numpy(fs_np).to(dev)
+    Z = spectrum_grid(phi2, taus_ax, fs_ax, Nb, Nd)  # (B, ny, nx)
+    mask = _local_max_mask(Z)
+    scores = torch.where(mask, Z, -torch.inf).reshape(B, ny * nx)
+    vals, idx = torch.topk(scores, K, dim=-1)
+    valid = torch.isfinite(vals)
+    tau0 = torch.where(valid, taus_ax[idx % nx], cfg.delay_min)
+    f0 = torch.where(valid, fs_ax[idx // nx], cfg.doppler_min)
+
+    tau_r, f_r, h_r = _refine(phi2, tau0, f0, cfg, Nb, Nd)
+    h_r = torch.where(valid, h_r, -torch.inf)
+
+    order = torch.argsort(-h_r, dim=-1, stable=True)
+    tau_r = torch.gather(tau_r, -1, order)
+    f_r = torch.gather(f_r, -1, order)
+    h_r = torch.gather(h_r, -1, order)
+    valid = torch.gather(valid, -1, order)
+    return PeakResult(
+        tau=tau_r.reshape(*batch_shape, K),
+        f=f_r.reshape(*batch_shape, K),
+        height=h_r.reshape(*batch_shape, K),
+        valid=valid.reshape(*batch_shape, K),
+    )

@@ -1,0 +1,64 @@
+"""CUDA kernels of the port vs their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither JAX nor the JAX package, so it also runs on a machine
+without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: kernel and plain version compute every product in fp32 with
+sums in another order; through the accurate schedule's amplification that
+stays below 1e-4 relative for one projection, and below 1e-3 for 20
+iterations of the fused solve (where a last-bit difference can also flip
+a bisection decision of the H-projection).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from admmnet_tpu_torch.core.config import ADMMOptions
+from admmnet_tpu_torch.data.anchor import make_anchor_batch
+from admmnet_tpu_torch.kernels import fused_admm_fast as kf
+from admmnet_tpu_torch.kernels import polar as kp
+from admmnet_tpu_torch.ops.projections import psd_project_eigh
+from admmnet_tpu_torch.solver.admm import fused_kernel_options
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    return float((torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, eigh_tol", [("accurate", 2e-4), ("fast", 5e-4)])
+def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 101, 101)) + 1j * rng.normal(size=(64, 101, 101))
+    M = np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2, np.complex64)
+    M = torch.from_numpy(M).to(cuda)
+    before = kp.launches.count
+    Pk = kp.psd_project_polar_kernel(M, mode=mode)
+    assert kp.launches.count == before + 1
+    assert _rel(Pk, kp.psd_project_polar_plain(M, mode=mode)) < 1e-4
+    assert _rel(Pk, psd_project_eigh(M)) < eigh_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_update", ["fused_fast", "fused_exact"])
+def test_fused_kernel_matches_plain(cuda, g_update):
+    y, b, s = (torch.from_numpy(x).to(cuda) for x in make_anchor_batch(64, "redemod", seed=0))
+    kw = fused_kernel_options(ADMMOptions(g_update=g_update))
+    before = kf.launches.count
+    pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
+    assert kf.launches.count == before + 1
+    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
