@@ -1,3 +1,3 @@
-from admmnet_tpu_torch.core.config import ADMMOptions, PeakSearchConfig, ProblemSpec
+from admmnet_tpu_torch.core.config import ADMMOptions, ModelConfig, PeakSearchConfig, ProblemSpec
 
-__all__ = ["ADMMOptions", "PeakSearchConfig", "ProblemSpec"]
+__all__ = ["ADMMOptions", "ModelConfig", "PeakSearchConfig", "ProblemSpec"]

@@ -1,4 +1,4 @@
-"""Typed configuration of the classical pipeline.
+"""Typed configuration of the classical pipeline and the learned net.
 
 Same dataclasses, fields, defaults and validation as
 ``admmnet_tpu.core.config`` (the JAX reference), so a configuration moves
@@ -174,6 +174,57 @@ DETECTION_BUDGET_ITERS = 10
 PRODUCTION_PEAKS = PeakSearchConfig(
     max_peaks=8, refine_iters=2, refine_precision="default"
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Unrolled ADMM-Net architecture.
+
+    ``g_mode`` selects the GLayer's spectral-filter evaluation: ``"eigh"``
+    (eigendecomposition with detached eigenvectors) or ``"chebyshev"`` (a
+    Clenshaw matrix polynomial of degree ``cheb_degree``).  For chebyshev,
+    ``cheb_impl="xla"`` runs ``ops.chebyshev.apply_spectral_filter`` at
+    ``cheb_precision`` ("highest": plain fp32; "default": fp32 with a
+    Hermitian re-projection every step), and ``cheb_impl="pallas"`` runs the
+    Clenshaw kernel (``kernels.cheb_filter``).  ``cheb_kblk`` is the TPU
+    kernel's instance interleave; it has no effect on Hopper and is kept so
+    the configuration round-trips.  ``head`` selects the peak head of
+    ``ADMMNet``: ``"attention"`` (direct regression) or ``"spectrum"``
+    (coarse-to-fine spectral search with a soft-argmax finish).
+    ``ref_stop_gradients`` reproduces the reference's stop-gradients.
+    """
+
+    spec: ProblemSpec = ProblemSpec()
+    num_layers: int = 10
+    hidden_dim: int = 128
+    num_heads: int = 4
+    correction_hidden: int = 64  # HLayer MLP width
+    value_net_hidden: int = 16  # GLayer filter MLP width
+    scale_net_hidden: int = 32  # ZLayer step MLP width
+    with_peak_head: bool = True
+    epsilon: float = 1e-8
+    ref_stop_gradients: bool = True
+    learned_sensing: bool = False  # trainable measurement matrix on y
+    g_mode: str = "eigh"  # "eigh" | "chebyshev"
+    cheb_degree: int = 48
+    cheb_precision: str = "highest"  # "highest" | "default"
+    cheb_impl: str = "xla"  # "xla" | "pallas"
+    cheb_kblk: int = 8
+    head: str = "attention"  # "attention" | "spectrum"
+    head_grid_step: float = 0.01
+    head_refine_rounds: int = 3
+    head_refine_points: int = 11
+    head_reduce_factor: float = 0.2
+
+    def __post_init__(self):
+        if self.g_mode not in ("eigh", "chebyshev"):
+            raise ValueError(f"unknown g_mode {self.g_mode!r}")
+        if self.cheb_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown cheb_impl {self.cheb_impl!r}")
+        if self.cheb_precision not in ("highest", "default"):
+            raise ValueError(f"unknown cheb_precision {self.cheb_precision!r}")
+        if self.head not in ("attention", "spectrum"):
+            raise ValueError(f"unknown head {self.head!r}")
 
 
 def to_json(cfg: Any) -> str:

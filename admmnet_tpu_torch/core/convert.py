@@ -1,11 +1,13 @@
-"""Carry configuration across from the JAX package.
+"""Carry configuration and learned weights across from the JAX package.
 
-The classical pipeline has no learned weights: what moves between the two
-packages is the option dataclasses.  ``options_from_jax`` accepts a JAX
-``ADMMOptions`` / ``PeakSearchConfig`` / ``ProblemSpec`` instance, its
-``dataclasses.asdict`` dictionary, or its JSON text, and returns the port's
-dataclass with the same field values.  It reads the object's fields only,
-so the JAX package is never imported here.
+``options_from_jax`` accepts a JAX ``ADMMOptions`` / ``PeakSearchConfig`` /
+``ProblemSpec`` / ``ModelConfig`` instance, its ``dataclasses.asdict``
+dictionary (such as ``runs/*/config.json["model"]``), or its JSON text, and
+returns the port's dataclass with the same field values.
+``params_from_jax`` turns a flax parameter tree (nested dicts of numpy
+arrays, as ``train.checkpoint.restore_checkpoint`` returns it) into the
+state_dict of the port's model.  Both read plain Python data only, so the
+JAX package is never imported here.
 """
 
 from __future__ import annotations
@@ -14,17 +16,21 @@ import dataclasses
 import json
 from typing import Any, Optional
 
+import numpy as np
+import torch
+
 from admmnet_tpu_torch.core.config import (
     ADMMOptions,
+    ModelConfig,
     PeakSearchConfig,
     ProblemSpec,
     _from_dict,
 )
 
-_CLASSES = {c.__name__: c for c in (ADMMOptions, PeakSearchConfig, ProblemSpec)}
+_CLASSES = {c.__name__: c for c in (ADMMOptions, PeakSearchConfig, ProblemSpec, ModelConfig)}
 # a field that only one of the classes has, to recognize a bare dictionary
 _MARKERS = (("g_update", ADMMOptions), ("refine_points", PeakSearchConfig),
-            ("Nb", ProblemSpec))
+            ("num_layers", ModelConfig), ("Nb", ProblemSpec))
 
 
 def options_from_jax(obj: Any, cls: Optional[type] = None):
@@ -59,3 +65,60 @@ def options_from_jax(obj: Any, cls: Optional[type] = None):
     if unknown:
         raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
     return _from_dict(cls, d)
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _convert_leaf(path, leaf):
+    """(state_dict key, tensor) of one flax leaf."""
+    *mods, name = path
+    x = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    attention = len(mods) >= 2 and mods[-2] == "attention"
+    if name == "kernel":
+        if attention:
+            # DenseGeneral: query/key/value (in, heads, head_dim), out (heads, head_dim, out)
+            x = x.reshape(-1, x.shape[-1]) if mods[-1] == "out" else x.reshape(x.shape[0], -1)
+        name, x = "weight", x.T
+    elif name == "bias" and attention:
+        x = x.reshape(-1)
+    return ".".join((*mods, name)), x.contiguous()
+
+
+def flax_to_state_dict(tree):
+    """The renaming alone: a flax parameter tree (of a model or of one
+    layer) as a state_dict.  Dense kernels (in, out) become
+    ``Linear.weight`` (out, in); the attention projections of
+    ``PeakSearchHead`` fold (heads, head_dim) into one axis; scalars stay
+    0-d."""
+    return dict(_convert_leaf(path, leaf) for path, leaf in _flatten(tree))
+
+
+def params_from_jax(tree, cfg: ModelConfig):
+    """State_dict of the port's model for a flax parameter tree.
+
+    ``tree`` is the flax ``params`` collection (the checkpoint state's
+    ``["params"]["params"]``).  A tree with a ``peak_head`` is an
+    ``ADMMNet``, one without a ``PhiEstADMMNet``.  Raises ``ValueError`` on
+    a leaf that is missing, left over, or of another shape than the port's
+    parameter.
+    """
+    from admmnet_tpu_torch.models import ADMMNet, PhiEstADMMNet
+
+    model = (ADMMNet if "peak_head" in tree else PhiEstADMMNet)(cfg)
+    want = model.state_dict()
+    got = flax_to_state_dict(tree)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"flax tree does not fit {type(model).__name__}: "
+                         f"missing {missing}, left over {extra}")
+    bad = [k for k in want if want[k].shape != got[k].shape]
+    if bad:
+        raise ValueError("shape mismatch: " + ", ".join(
+            f"{k} {tuple(got[k].shape)} vs {tuple(want[k].shape)}" for k in bad))
+    return {k: got[k] for k in want}

@@ -1,11 +1,12 @@
 """Build the CUDA kernels of ``csrc/`` and load them with ctypes.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one shared
+The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper), one ``nvcc``
+process per ``.cu`` file, all started together, and linked into one shared
 library with a plain C interface, named by a hash of the sources, under
 ``build/kernels/`` at the repository root.  The build runs at the first
 kernel launch of a process, never at import, so the package imports on a
-machine without CUDA.  Two processes building at once each write a
-temporary file and rename it into place.
+machine without CUDA.  Two processes building at once each write their own
+temporary files and rename the library into place.
 """
 
 from __future__ import annotations
@@ -17,13 +18,14 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,12 +42,15 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
         _I, _I, _I, _I, _I, _P,
     ),
+    # Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i (reserved, null), scratch,
+    # B, P, m, degree, stream
+    "cheb_filter_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's build, None if cached
-build_log = ""  # nvcc's report (registers, shared memory, spills)
+build_logs = {}  # source name -> nvcc's report (registers, shared memory, spills)
 
 
 def _sources():
@@ -72,25 +77,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libadmmnet_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd, what):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists."""
-    global build_seconds, build_log
+    global build_seconds, build_logs
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        futures = {
+            src.name: pool.submit(_run, [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  f"nvcc {src.name}")
+            for src, obj in zip(sources, objs)
+        }
+        logs = {name: fut.result() for name, fut in futures.items()}
+    tmp = out.with_name(f"{tag}.tmp")
+    _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], "nvcc link")
     build_seconds = time.time() - t0
-    build_log = proc.stdout + proc.stderr
+    build_logs = logs
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 

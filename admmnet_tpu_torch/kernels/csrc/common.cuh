@@ -1,5 +1,5 @@
-// Device code shared by the polar PSD kernel (polar.cu) and the fused ADMM
-// solve kernel (fused_admm_fast.cu).
+// Device code shared by the polar PSD kernel (polar.cu), the fused ADMM
+// solve kernel (fused_admm_fast.cu) and the Clenshaw kernel (cheb_filter.cu).
 //
 // One thread block works on one matrix.  A complex Hermitian matrix is two
 // float planes (real, imaginary) of side P (112 or 128), zero-padded past

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``admmnet_tpu_torch``) on one GPU.
 
-Drives the classical detection pipeline -- anchor / random-SNR scenes ->
-batched ADMM solve -> peak list -> detection score -- through the port's
-public entry points on the card, after building the CUDA kernels from
-``admmnet_tpu_torch/kernels/csrc`` and holding each kernel against its plain
-PyTorch version.  Every phase prints one line with its numbers and the
-tolerance it is held to; any failure raises (non-zero exit) before the last
-line.  The last line is the JSON contract line
+Drives the two paths of the port through its public entry points on the
+card, after building the CUDA kernels from ``admmnet_tpu_torch/kernels/csrc``
+and holding each kernel against its plain PyTorch version:
+
+- the classical detection pipeline (phases 3-9): anchor / random-SNR scenes
+  -> batched ADMM solve -> peak list -> detection score;
+- the learned pipeline (phases 10-13): the committed net-3 checkpoint
+  (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
+  random-SNR scenes, held against the JAX package's golden output.
+
+Every phase prints one line with its numbers and the tolerance it is held
+to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -32,6 +37,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN_EIGH = ROOT / "results" / "r05" / "phi_eigh_2048.npz"
 RANDOM_SCENES = ROOT / "tests" / "golden" / "random512_key42.npz"
+GOLDEN_NET3 = ROOT / "tests" / "golden" / "net3_random512_jax.npz"
+NET3 = ROOT / "runs" / "train_net3_r05"
+NET3_RECORDED_F1 = 0.8646  # results/r05/net_depth_r05.json, the TPU kernel's run
 
 ITERS = 100  # full solve budget
 B_SOLVE = 2048  # anchor instances, K2 vs its plain version
@@ -40,7 +48,15 @@ B_POLAR_SOLVE = 256  # per-step polar / eigh solves vs the golden
 B_K1 = 512  # matrices, K1 vs its plain version
 B_TIME_K2 = 8192  # timing shapes
 B_TIME_K1 = 2048
+B_K4 = 512  # matrices, K4 vs its plain version (the learned path's batch)
+B_TIME_NET = (2048, 8192)  # K4 timing batches; the net forward at the last
+B_CLI = 128  # scenes of the eval_net CLI check
+CHEB_DEGREE = 48
 F1_BAND = 0.005  # random-scene gate: F1 >= eigh control - band
+# The card's published peaks (H100 SXM at 700 W, NVIDIA's datasheet):
+# fp32 outside the tensor cores, and device memory bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 # Tolerances, with their reasons:
 # - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py).
@@ -59,6 +75,18 @@ EXACT_NMSE_TOL = 1e-5
 POLAR_NMSE_TOL = 1e-5
 EIGH_NMSE_TOL = 1e-5
 FAST_NMSE_TOL = 0.2  # detection-grade contract; reference band ~0.06
+# - K4 vs its plain version, max per-matrix relative error: both fp32, the
+#   sums in another order through 48 dependent Clenshaw steps; ~10x the
+#   measured 5.6e-6 (spiked matrices; 5.7e-7 random) on an H100.
+K4_PLAIN_TOL = 5e-5
+# - net-3 trunk phi vs the JAX golden (fp32 on the CPU), per-scene relative
+#   error: fp32 sums in another order through three layers; ~10x the
+#   measured median 1.9e-6 / max 4.2e-6 on an H100.
+NET3_PHI_TOL = {"median": 2e-5, "max": 5e-5}
+# - eval_net on the card vs on the CPU: the same detections up to one
+#   flipped match (1 / 384 targets = 0.0026), RMSEs over the same pairs.
+CLI_DET_TOL = 0.005
+CLI_RMSE_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -109,6 +137,32 @@ def to_dev(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it) for work of ``flops``
+    fp32 operations that must move ``nbytes`` bytes."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def cheb_flops(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
+    """Useful fp32 operations of K4: degree Karatsuba products (3 real m^3
+    products of 2 m^3 operations each) per matrix."""
+    return B * degree * 3 * 2.0 * m**3
+
+
+def cheb_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
+    """K4 reads M (complex64) and the coefficients once and writes G once."""
+    return B * (2 * m * m * 8 + degree * 4)
+
+
+def run_cli(main, argv) -> dict:
+    """The last stdout line of a CLI's ``main(argv)``, parsed as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
 class Smoke:
     def __init__(self):
         from admmnet_tpu_torch.core.config import ADMMOptions
@@ -138,12 +192,13 @@ class Smoke:
         t0 = time.time()
         _build.lib()
         secs = time.time() - t0
-        regs = [ln.strip() for ln in _build.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[2 build] K1 polar.cu + K2 fused_admm_fast.cu: {secs:.1f} s "
-            f"(nvcc {_build.build_seconds}) -> {_build.library_path().name}")
-        for ln in regs:
-            log(f"[2 build]   ptxas {ln}")
+        log(f"[2 build] K1 polar.cu + K2 fused_admm_fast.cu + K4 cheb_filter.cu, one nvcc "
+            f"each in parallel: {secs:.1f} s (nvcc {_build.build_seconds}) -> "
+            f"{_build.library_path().name}")
+        for name, text in _build.build_logs.items():
+            for ln in text.splitlines():
+                if "registers" in ln or "spill" in ln:
+                    log(f"[2 build]   {name} ptxas {ln.strip()}")
 
     # 3 -------------------------------------------------------------------
     def k1_vs_plain(self):
@@ -255,10 +310,7 @@ class Smoke:
         from admmnet_tpu_torch.peaks import find_peaks, match_peaks
         from admmnet_tpu_torch.solver import admm_solve_fixed
 
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            main_classical.main(["--deploy", "--json", "--device", "cuda"])
-        cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+        cli = run_cli(main_classical.main, ["--deploy", "--json", "--device", "cuda"])
         log(f"[6 cli --deploy] fixed anchor: F1 {cli['f1']} (need 1.0), peaks "
             f"{[[round(v, 4) for v in r[:2]] for r in cli['peaks']]}")
         check(cli["f1"] == 1.0 and cli["converged"] is None, "CLI --deploy")
@@ -330,19 +382,30 @@ class Smoke:
         k2 = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
         k2p = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
         n_ii = B_TIME_K2 * ITERS
+        # per iteration: 9 real products per schedule step + 3 closing ones,
+        # at the logical side n + 1 = 101; only (B, n) rows in and out
+        n = y.shape[-1]
+        k2_flops = n_ii * (9 * len(kw["schedule"]) + 3) * 2.0 * (n + 1) ** 3
+        k2_bound, k2_by = bound(k2_flops, B_TIME_K2 * ((3 * n + 1) * 4 + n * 8))
         log(f"[9 time K2 fused_fast] B={B_TIME_K2} x {ITERS}: kernel {k2:.1f} ms "
             f"({n_ii / k2 * 1e3:.0f} inst-iter/s), plain {k2p:.1f} ms "
-            f"({n_ii / k2p * 1e3:.0f} inst-iter/s) {tag}")
-        self.kernels["K2"].update(ms=k2, plain_ms=k2p)
+            f"({n_ii / k2p * 1e3:.0f} inst-iter/s); bound {k2_bound:.1f} ms "
+            f"({k2_by}) {tag}")
+        self.kernels["K2"].update(ms=k2, plain_ms=k2p, bound_ms=k2_bound, bound_by=k2_by,
+                                  library_ms=None)
 
         M = random_hermitian(np.random.default_rng(1), B_TIME_K1, 101, self.dev)
         for mode in ("accurate", "fast"):
             k1 = cuda_ms(lambda: psd_project_polar_kernel(M, mode=mode), reps=3)
             k1p = cuda_ms(lambda: psd_project_polar_plain(M, mode=mode), reps=3)
+            nsteps = 7 if mode == "accurate" else 6
+            k1_bound, k1_by = bound(B_TIME_K1 * (9 * nsteps + 3) * 2.0 * 101**3,
+                                    B_TIME_K1 * 2 * 101 * 101 * 8)
             log(f"[9 time K1 {mode}] B={B_TIME_K1} m=101: kernel {k1:.2f} ms, "
-                f"plain {k1p:.2f} ms per call {tag}")
+                f"plain {k1p:.2f} ms per call; bound {k1_bound:.2f} ms ({k1_by}) {tag}")
             if mode == "accurate":
-                self.kernels["K1"].update(ms=k1, plain_ms=k1p)
+                self.kernels["K1"].update(ms=k1, plain_ms=k1p, bound_ms=k1_bound,
+                                          bound_by=k1_by, library_ms=None)
 
         def deploy():
             pk = find_peaks(admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0, self.prod),
@@ -354,9 +417,197 @@ class Smoke:
             f"PRODUCTION_PEAKS: {dms / B_TIME_K2:.5f} ms/scene "
             f"({B_TIME_K2 / dms * 1e3:.0f} scenes/s) {tag}")
 
+    # 10 ------------------------------------------------------------------
+    def k4_vs_plain(self):
+        from admmnet_tpu_torch.kernels.cheb_filter import (
+            cheb_filter_matrices,
+            cheb_filter_matrices_plain,
+            cheb_filter_planes,
+        )
+
+        rng = np.random.default_rng(2)
+        m, D = 101, CHEB_DEGREE
+        M = random_hermitian(rng, B_K4, m, self.dev)
+        # second half: a dominant eigenvalue, so that A = M/||M||_F has a
+        # spectral radius near 1, as the GLayer's lifted matrices do
+        v = torch.from_numpy(rng.normal(size=(B_K4 // 2, m)) + 1j * rng.normal(size=(B_K4 // 2, m)))
+        v = (v / torch.linalg.norm(v, dim=-1, keepdim=True)).to(torch.complex64).to(self.dev)
+        M[B_K4 // 2:] += 300.0 * v[:, :, None] * v.conj()[:, None, :]
+        M[-1] = 0  # a zero matrix
+        c = torch.from_numpy((rng.normal(size=(B_K4, D)) * 0.3).astype(np.float32)).to(self.dev)
+        Gk = cheb_filter_matrices(M, c, D)
+        Gp = cheb_filter_matrices_plain(M, c, D)
+        Gr, Gi = cheb_filter_planes(M, c, D)
+        torch.cuda.synchronize()
+        check(bool(torch.all(torch.isfinite(torch.view_as_real(Gk)))), "K4: non-finite output")
+        e = rel_err(Gk[:-1], Gp[:-1])
+        half = B_K4 // 2
+        e_gue, e_spike = float(e[:half].max()), float(e[half:].max())
+        z = Gk[-1]
+        zero_ok = bool(torch.equal(z, Gp[-1])) and bool(torch.all(z - torch.diag(z.diagonal()) == 0))
+        pad_ok = all(bool(torch.all(X[:, m:, :] == 0)) and bool(torch.all(X[:, :, m:] == 0))
+                     for X in (Gr, Gi))
+        self.kernels["K4"] = {"max_abs_err": float((Gk - Gp).abs().max())}
+        log(f"[10 K4 vs plain] B={B_K4} m={m} degree {D}: max per-matrix rel err "
+            f"{max(e_gue, e_spike):.3e} (random {e_gue:.3e}, spiked {e_spike:.3e}; tol "
+            f"{K4_PLAIN_TOL:g}), median {float(e.median()):.3e}; zero matrix diagonal, "
+            f"bitwise the plain version's: {zero_ok}; padding exactly 0: {pad_ok}")
+        check(max(e_gue, e_spike) < K4_PLAIN_TOL, "K4 disagrees with its plain version")
+        check(zero_ok and pad_ok, "K4 zero matrix / padding")
+
+    # 11 ------------------------------------------------------------------
+    def learned_path(self):
+        """The learned main path: checkpoint -> net-3 on the card -> score."""
+        from admmnet_tpu_torch.cli.eval_net import evaluate_e2e
+        from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+        from admmnet_tpu_torch.models import ADMMNet
+        from admmnet_tpu_torch.peaks import match_peaks
+        from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
+
+        with np.load(RANDOM_SCENES) as d:
+            raw = {k: d[k] for k in d.files}
+        with np.load(GOLDEN_NET3) as d:
+            gold = {k: d[k] for k in d.files}
+        order = np.argsort(-gold["conf"], axis=-1)
+        rows = np.arange(len(order))[:, None]
+        gst = match_peaks(gold["tau"][rows, order], gold["f"][rows, order], raw["tau"],
+                          raw["f"], 0.05, 0.05, pred_valid=gold["conf"][rows, order] > 0.5)
+        state, _ = restore_checkpoint(NET3)
+        cfg = options_from_jax(json.loads((NET3 / "config.json").read_text())["model"])
+        model = ADMMNet(cfg)
+        model.load_state_dict(params_from_jax(state["params"]["params"], cfg))
+        self.net3 = model.to(self.dev).eval()
+        self.net3_cfg = cfg
+        y, b, s = to_dev(self.dev, raw["y"], raw["b"], raw["sigma"])
+        t0 = time.time()
+        st, pred = evaluate_e2e(self.net3, y, b, s, raw["tau"], raw["f"])
+        secs = time.time() - t0
+        e = np.linalg.norm(pred["phi"] - gold["phi"], axis=-1) / np.linalg.norm(gold["phi"], axis=-1)
+        med, mx = float(np.median(e)), float(e.max())
+        log(f"[11 learned net-3] {len(raw['y'])} random scenes, one batch, {cfg.num_layers} "
+            f"layers, chebyshev GLayer (K4) degree {cfg.cheb_degree}, spectrum head: phi vs "
+            f"JAX golden per-scene rel err median {med:.3e} (tol {NET3_PHI_TOL['median']:g}), "
+            f"max {mx:.3e} (tol {NET3_PHI_TOL['max']:g}) [{secs:.1f} s]")
+        log(f"[11 learned net-3] F1 {st['f1']:.4f} (golden {gst['f1']:.4f}, need >= "
+            f"golden - {F1_BAND}; recorded on the TPU kernel {NET3_RECORDED_F1}), "
+            f"tau RMSE {st['tau_rmse']:.5f}, f RMSE {st['f_rmse']:.5f}")
+        check(all(np.isfinite(pred[k]).all() for k in pred), "net-3: non-finite output")
+        check(med < NET3_PHI_TOL["median"] and mx < NET3_PHI_TOL["max"], "net-3 phi vs golden")
+        check(st["f1"] >= gst["f1"] - F1_BAND, "net-3 F1 below the golden's")
+        self.raw = raw
+
+    def learned_clis(self):
+        """eval_net --e2e and main_net on the card, each against its own
+        result on the CPU for the same input."""
+        import tempfile
+
+        from admmnet_tpu_torch.cli import eval_net, main_net
+
+        raw = self.raw
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            split = Path(tmp) / "test"
+            split.mkdir()
+            arrays = {"y_real": raw["y"].real, "y_imag": raw["y"].imag,
+                      "b_real": raw["b"].real, "b_imag": raw["b"].imag, "tau": raw["tau"],
+                      "f": raw["f"], "C_real": np.zeros_like(raw["tau"]),
+                      "C_imag": np.zeros_like(raw["tau"]),
+                      "L_true": np.full(len(raw["tau"]), 3, np.int32),
+                      "sigma": raw["sigma"], "ser": np.zeros_like(raw["sigma"])}
+            for k, v in arrays.items():
+                np.save(split / f"{k}.npy", np.ascontiguousarray(v))
+            (Path(tmp) / "dataset_config.json").write_text(json.dumps(
+                {"Nb": 10, "Nd": 10, "L_max": 3, "test_samples": len(raw["tau"])}))
+            argv = ["--data", tmp, "--ckpt", str(NET3), "--e2e", "--num-layers", "3",
+                    "--g-mode", "chebyshev", "--cheb-impl", "pallas", "--head", "spectrum",
+                    "--limit", str(B_CLI), "--json", "--device"]
+            gpu = run_cli(eval_net.main, argv + ["cuda"])
+            cpu = run_cli(eval_net.main, argv + ["cpu"])
+        dg, dc = gpu["detection"], cpu["detection"]
+        det = max(abs(dg[k] - dc[k]) for k in ("f1", "precision", "recall"))
+        rmse = max(abs(dg[k] - dc[k]) for k in ("tau_rmse", "f_rmse"))
+        log(f"[11 cli eval_net --e2e] {gpu['samples']} scenes on {gpu['device']}: F1 "
+            f"{dg['f1']:.4f}; on cpu: F1 {dc['f1']:.4f}; max |diff| F1/precision/recall "
+            f"{det:.2e} (tol {CLI_DET_TOL}), RMSE {rmse:.2e} (tol {CLI_RMSE_TOL:g})")
+        check(gpu["device"] == "cuda" and det <= CLI_DET_TOL and rmse <= CLI_RMSE_TOL,
+              "eval_net on the card vs the CPU")
+
+        argv = ["--ckpt", str(ROOT / "runs" / "phi10"), "--json", "--device"]
+        gpu, cpu = run_cli(main_net.main, argv + ["cuda"]), run_cli(main_net.main, argv + ["cpu"])
+        gap = max((abs(a - c) for pg, pc in zip(sorted(gpu["peaks"]), sorted(cpu["peaks"]))
+                   for a, c in zip(pg[:2], pc[:2])), default=0.0)
+        log(f"[11 cli main_net] phi10 on the anchor, cuda: F1 {gpu['f1']}, peaks "
+            f"{[[round(v, 4) for v in r[:2]] for r in gpu['peaks']]}; cpu: F1 {cpu['f1']}; "
+            f"max peak position gap {gap:.2e} (tol 1e-3)")
+        check(gpu["f1"] == cpu["f1"] and len(gpu["peaks"]) == len(cpu["peaks"]) and gap < 1e-3,
+              "main_net on the card vs the CPU")
+
+    # 12 ------------------------------------------------------------------
+    def learned_timings(self):
+        from admmnet_tpu_torch.kernels.cheb_filter import (
+            cheb_filter_matrices,
+            cheb_filter_matrices_plain,
+        )
+
+        tag = f"[{self.card}]"
+        rng = np.random.default_rng(3)
+        for B in B_TIME_NET:
+            M = random_hermitian(rng, B, 101, self.dev)
+            c = torch.from_numpy(
+                (rng.normal(size=(B, CHEB_DEGREE)) * 0.3).astype(np.float32)).to(self.dev)
+            k4 = cuda_ms(lambda: cheb_filter_matrices(M, c, CHEB_DEGREE), reps=3)
+            k4p = cuda_ms(lambda: cheb_filter_matrices_plain(M, c, CHEB_DEGREE), reps=3)
+            k4_bound, k4_by = bound(cheb_flops(B), cheb_bytes(B))
+            log(f"[12 time K4] one GLayer call, B={B} m=101 degree {CHEB_DEGREE}: kernel "
+                f"{k4:.2f} ms ({cheb_flops(B) / k4 / 1e9:.2f} TFLOP/s useful), plain "
+                f"{k4p:.2f} ms; bound {k4_bound:.2f} ms ({k4_by}) {tag}")
+            del M, c
+        self.kernels["K4"].update(ms=k4, plain_ms=k4p, bound_ms=k4_bound, bound_by=k4_by,
+                                  library_ms=None)
+
+        B = B_TIME_NET[-1]
+        reps = -(-B // len(self.raw["y"]))
+        y, b, s = to_dev(self.dev, *(np.concatenate([self.raw[k]] * reps)[:B]
+                                     for k in ("y", "b", "sigma")))
+
+        def forward():
+            with torch.inference_mode():
+                return self.net3(y, b, s)[0]
+
+        nms = cuda_ms(forward, reps=3)
+        log(f"[12 time net-3] forward + spectrum head, B={B}: {nms:.1f} ms, "
+            f"{nms / B:.5f} ms/scene ({B / nms * 1e3:.0f} scenes/s) {tag}")
+        self.net_forward = forward
+
+    # 13 ------------------------------------------------------------------
+    def profile(self):
+        """torch.profiler over one net-3 forward at the timing batch."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        forward = self.net_forward
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [(e.key, e.device_time_total) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(t for _, t in kernels)
+        if busy == 0:
+            log("[13 profile net-3] torch.profiler shows no device time; the CUDA-event "
+                "times of phase 12 stand alone")
+            return
+        kernels.sort(key=lambda kt: -kt[1])
+        top = "; ".join(f"{name[:48]} {t / busy:.1%}" for name, t in kernels[:5])
+        log(f"[13 profile net-3] B={B_TIME_NET[-1]}: device busy {busy / 1e3:.1f} ms of a "
+            f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}); by device time: {top} "
+            f"[{self.card}]")
+
 
 def main() -> int:
-    from admmnet_tpu_torch.kernels import fused_admm_fast, polar
+    from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, polar
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one GPU")
@@ -377,6 +628,20 @@ def main() -> int:
         f"K2 fused {counts['K2']} (each must be > 0)")
     check(counts["K1"] > 0 and counts["K2"] > 0, "a kernel of the main path never launched")
     sm.timings()
+    sm.k4_vs_plain()
+    # the learned main path's launches are counted over phase 11
+    cheb_filter.launches.reset()
+    sm.learned_path()
+    k4_net = cheb_filter.launches.count
+    sm.learned_clis()
+    counts["K4"] = cheb_filter.launches.count
+    log(f"[11 launches] learned path (phase 11): K4 cheb_filter {counts['K4']} "
+        f"(must be > 0), {k4_net} in the 512-scene forward (expect "
+        f"{sm.net3_cfg.num_layers}, one per GLayer)")
+    check(counts["K4"] > 0 and k4_net == sm.net3_cfg.num_layers,
+          "K4 did not launch once per GLayer on the learned path")
+    sm.learned_timings()
+    sm.profile()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -384,6 +649,8 @@ def main() -> int:
                "admmnet_tpu/kernels/polar.py:154"),
         "K2": ("fused_admm_fast", "admmnet_tpu_torch/kernels/csrc/fused_admm_fast.cu",
                "admmnet_tpu/kernels/fused_admm_fast.py:575"),
+        "K4": ("cheb_filter", "admmnet_tpu_torch/kernels/csrc/cheb_filter.cu",
+               "admmnet_tpu/kernels/cheb_filter.py:145"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,0 +1,129 @@
+"""Port parity: Chebyshev matrix filters and the Clenshaw kernel's plain version.
+
+Same numpy inputs through ``admmnet_tpu.ops.chebyshev`` /
+``admmnet_tpu.kernels.cheb_filter`` (Pallas in interpret mode) and their
+port counterparts.  Tolerances: every product is fp32 on both sides with
+the sums in another order, through 16 dependent Clenshaw steps; measured
+below 1e-6 relative, held at 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from admmnet_tpu.kernels.cheb_filter import apply_spectral_filter_pallas, cheb_filter_matrices
+from admmnet_tpu.ops import chebyshev as jcheb
+from admmnet_tpu_torch.kernels import cheb_filter as kc
+from admmnet_tpu_torch.ops import chebyshev as tcheb
+
+torch.set_num_threads(1)  # JAX and torch share the cores of one test worker
+
+TOL = 1e-5
+
+
+def _hermitian(b, m, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(b, m, m)) + 1j * rng.normal(size=(b, m, m))
+    return ((X + np.conj(np.swapaxes(X, -1, -2))) / 2).astype(np.complex64)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a).reshape(len(a), -1), np.asarray(b).reshape(len(b), -1)
+    return float(np.max(np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)))
+
+
+def _filters(thr=0.3):
+    return (lambda w: jax.nn.softplus(w - thr),
+            lambda w: torch.nn.functional.softplus(w - thr))
+
+
+@pytest.mark.parametrize("n", [1, 16, 48])
+def test_nodes_and_coefficient_matrix_equal(n):
+    assert np.array_equal(tcheb.chebyshev_nodes(n), jcheb.chebyshev_nodes(n))
+    C = tcheb.coefficient_matrix(n)
+    assert C.dtype == np.float32 and np.array_equal(C, jcheb.coefficient_matrix(n))
+
+
+@pytest.mark.parametrize("precision, jax_precision", [
+    ("highest", None), ("default", jax.lax.Precision.DEFAULT)])
+def test_apply_spectral_filter_matches_jax(precision, jax_precision):
+    M = _hermitian(3, 20, 0)
+    fj, ft = _filters()
+    ref = jcheb.apply_spectral_filter(jnp.asarray(M), fj, 16, precision=jax_precision)
+    out = tcheb.apply_spectral_filter(torch.from_numpy(M), ft, 16, precision)
+    assert out.dtype == torch.complex64
+    assert _rel(out.numpy(), ref) < TOL
+
+
+def test_plain_clenshaw_matches_pallas_kernel():
+    """B = 3 is not a multiple of kblk = 2: the TPU kernel pads the batch."""
+    M = _hermitian(3, 20, 2)
+    c = (np.random.default_rng(3).normal(size=(3, 16)) * 0.1).astype(np.float32)
+    ref = cheb_filter_matrices(jnp.asarray(M), jnp.asarray(c), 16, kblk=2, interpret=True)
+    before = kc.launches.count
+    out = kc.cheb_filter_matrices(torch.from_numpy(M), torch.from_numpy(c), 16)
+    assert kc.launches.count == before  # a CPU tensor runs the plain version
+    assert _rel(out.numpy(), ref) < TOL
+
+
+def test_kernel_route_matches_pallas_route():
+    M = _hermitian(3, 20, 4)
+    fj, ft = _filters(0.1)
+    ref = apply_spectral_filter_pallas(jnp.asarray(M), fj, 16, kblk=2, interpret=True)
+    out = kc.apply_spectral_filter_kernel(torch.from_numpy(M), ft, 16)
+    assert _rel(out.numpy(), ref) < TOL
+
+
+def test_kernel_route_is_a_matrix_function():
+    """Against the eigendecomposition oracle at degree 48: the float32
+    truncation floor of the method is ~1.2e-3 (tests/test_cheb_filter.py)."""
+    M = _hermitian(4, 16, 1)
+    out = kc.apply_spectral_filter_kernel(
+        torch.from_numpy(M), lambda w: torch.tanh(w) * 0.5 + 0.5 * w, 48).numpy()
+    w, V = np.linalg.eigh(M)
+    oracle = np.einsum("...ij,...j,...kj->...ik", V, np.tanh(w) * 0.5 + 0.5 * w, np.conj(V))
+    assert _rel(out, oracle) < 5e-3
+
+
+def test_zero_matrix():
+    """A zero M normalizes to A = 0: the plain Clenshaw output is exactly
+    diagonal, with the scalar recurrence at x = 0 on the diagonal, and the
+    filtered matrix is f(0) I, as the JAX evaluation gives."""
+    c = (np.random.default_rng(5).normal(size=(2, 16)) * 0.3).astype(np.float32)
+    G = kc.cheb_filter_matrices_plain(torch.zeros(2, 20, 20, dtype=torch.complex64),
+                                      torch.from_numpy(c), 16).numpy()
+    for i in range(2):
+        b1 = b2 = np.float32(0)
+        for j in range(15, 0, -1):
+            b1, b2 = (c[i, j] + np.float32(0)) - b2, b1
+        diag = np.full(20, (c[i, 0] + np.float32(0)) - b2, np.float32)
+        assert np.array_equal(G[i], np.diag(diag).astype(np.complex64))
+    fj, ft = _filters()
+    out = kc.apply_spectral_filter_kernel(torch.zeros(2, 20, 20, dtype=torch.complex64), ft, 16)
+    ref = jcheb.apply_spectral_filter(jnp.zeros((2, 20, 20), jnp.complex64), fj, 16,
+                                      precision=jax.lax.Precision.DEFAULT)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    assert abs(out[0, 0, 0].item() - float(jax.nn.softplus(-0.3))) < 1e-3
+
+
+def test_wrapper_checks_and_devices():
+    M = torch.from_numpy(_hermitian(2, 8, 6))
+    c = torch.zeros(2, 5)
+    with pytest.raises(ValueError, match="coeffs"):
+        kc.cheb_filter_matrices(M, torch.zeros(2, 4), 5)
+    with pytest.raises(TypeError):
+        kc.cheb_filter_matrices(M.to(torch.complex128), c, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kc.cheb_filter_matrices(M.to("meta"), c.to("meta"), 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kc.cheb_filter_planes(M, c, 5)
+
+
+def test_plain_version_is_differentiable():
+    """On the CPU the Clenshaw recurrence trains through torch autograd."""
+    M = torch.from_numpy(_hermitian(2, 8, 7)).requires_grad_(True)
+    c = torch.full((2, 6), 0.2, requires_grad=True)
+    kc.cheb_filter_matrices(M, c, 6).real.sum().backward()
+    assert torch.isfinite(torch.view_as_real(M.grad)).all() and torch.isfinite(c.grad).all()

@@ -8,9 +8,11 @@ without them:
 
 Tolerances: kernel and plain version compute every product in fp32 with
 sums in another order; through the accurate schedule's amplification that
-stays below 1e-4 relative for one projection, and below 1e-3 for 20
+stays below 1e-4 relative for one projection, below 1e-3 for 20
 iterations of the fused solve (where a last-bit difference can also flip
-a bisection decision of the H-projection).
+a bisection decision of the H-projection), and below 5e-5 for the 48
+dependent steps of a Clenshaw evaluation (measured 5.7e-7 on random
+matrices on an H100).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from admmnet_tpu_torch.core.config import ADMMOptions
 from admmnet_tpu_torch.data.anchor import make_anchor_batch
+from admmnet_tpu_torch.kernels import cheb_filter as kc
 from admmnet_tpu_torch.kernels import fused_admm_fast as kf
 from admmnet_tpu_torch.kernels import polar as kp
 from admmnet_tpu_torch.ops.projections import psd_project_eigh
@@ -62,3 +65,24 @@ def test_fused_kernel_matches_plain(cuda, g_update):
     pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
     assert kf.launches.count == before + 1
     assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cheb_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 101, 101)) + 1j * rng.normal(size=(64, 101, 101))
+    M = np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2, np.complex64)
+    M[-1] = 0
+    M = torch.from_numpy(M).to(cuda)
+    c = torch.from_numpy((rng.normal(size=(64, 48)) * 0.3).astype(np.float32)).to(cuda)
+    before = kc.launches.count
+    G = kc.cheb_filter_matrices(M, c, 48)
+    assert kc.launches.count == before + 1
+    Gp = kc.cheb_filter_matrices_plain(M, c, 48)
+    assert _rel(G[:-1], Gp[:-1]) < 5e-5
+    assert torch.equal(G[-1], Gp[-1])  # A = 0: no product carries rounding
+    Gr, Gi = kc.cheb_filter_planes(M, c, 48)
+    for X in (Gr, Gi):
+        assert bool(torch.all(X[:, 101:, :] == 0)) and bool(torch.all(X[:, :, 101:] == 0))
+    with pytest.raises(NotImplementedError):
+        kc.cheb_filter_matrices(M.requires_grad_(True), c, 48)

@@ -135,11 +135,11 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(admmnet_tpu_torch.__path__, 'admmnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'admmnet_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'admmnet_tpu'))\n"
         "print(sum(k.startswith('admmnet_tpu_torch.') for k in sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15  # every module was imported
+    assert int(out.stdout.split()[0]) >= 34  # every module was imported
