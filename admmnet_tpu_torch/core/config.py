@@ -1,4 +1,5 @@
-"""Typed configuration of the classical pipeline and the learned net.
+"""Typed configuration of the classical pipeline, the learned net, dataset
+generation and training.
 
 Same dataclasses, fields, defaults and validation as
 ``admmnet_tpu.core.config`` (the JAX reference), so a configuration moves
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +226,53 @@ class ModelConfig:
             raise ValueError(f"unknown cheb_precision {self.cheb_precision!r}")
         if self.head not in ("attention", "spectrum"):
             raise ValueError(f"unknown head {self.head!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Synthetic OFDM-ISAC dataset knobs."""
+
+    spec: ProblemSpec = ProblemSpec()
+    tau_range: Tuple[float, float] = (0.1, 0.9)
+    f_range: Tuple[float, float] = (-0.4, 0.4)
+    gain_std: float = 0.7  # complex reflection coeff ~ N(0, 0.7^2) per part
+    snr_range: Tuple[float, float] = (5.0, 25.0)  # environment SNR_w in dB
+    snr_demod: float = 7.0  # demodulation SNR_e in dB
+    psk_order: int = 4  # QPSK
+    train_ratio: float = 0.7
+    val_ratio: float = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs.
+
+    AdamW at ``lr`` with decoupled ``weight_decay`` in two groups (the
+    model's ``ADMM_LR_MODULES`` at ``admm_lr_scale * lr``), global gradient
+    norm clipped at ``grad_clip``, cosine warm restarts (first cycle
+    ``sgdr_t0`` epochs, each next ``sgdr_t_mult`` times longer, floor
+    ``lr_min``), early stop after ``patience`` epochs without a better
+    validation loss.  ``assignment``: "slot" (slot i pairs with target i)
+    or "perm" (set matching).  ``spectral_weight`` weighs the spectral
+    contrast loss.  ``reset_best``: on resume, forget the checkpoint's best
+    validation loss (a curriculum stage switch).
+    """
+
+    batch_size: int = 256
+    epochs: int = 100
+    lr: float = 1e-3
+    admm_lr_scale: float = 0.5
+    weight_decay: float = 1e-3
+    grad_clip: float = 1.0
+    sgdr_t0: int = 10
+    sgdr_t_mult: int = 2
+    lr_min: float = 1e-6
+    patience: int = 10
+    conf_threshold: float = 0.5  # detection threshold of the test metrics
+    assignment: str = "slot"
+    spectral_weight: float = 0.0
+    reset_best: bool = False
+    seed: int = 0
 
 
 def to_json(cfg: Any) -> str:

@@ -1,13 +1,15 @@
 """Carry configuration and learned weights across from the JAX package.
 
 ``options_from_jax`` accepts a JAX ``ADMMOptions`` / ``PeakSearchConfig`` /
-``ProblemSpec`` / ``ModelConfig`` instance, its ``dataclasses.asdict``
-dictionary (such as ``runs/*/config.json["model"]``), or its JSON text, and
+``ProblemSpec`` / ``ModelConfig`` / ``DataConfig`` / ``TrainConfig``
+instance, its ``dataclasses.asdict`` dictionary (such as
+``runs/*/config.json["model"]`` or ``["train"]``), or its JSON text, and
 returns the port's dataclass with the same field values.
 ``params_from_jax`` turns a flax parameter tree (nested dicts of numpy
 arrays, as ``train.checkpoint.restore_checkpoint`` returns it) into the
-state_dict of the port's model.  Both read plain Python data only, so the
-JAX package is never imported here.
+state_dict of the port's model, and ``params_to_jax`` turns a state_dict
+back into that tree.  All of them read plain Python data only, so the JAX
+package is never imported here.
 """
 
 from __future__ import annotations
@@ -21,16 +23,20 @@ import torch
 
 from admmnet_tpu_torch.core.config import (
     ADMMOptions,
+    DataConfig,
     ModelConfig,
     PeakSearchConfig,
     ProblemSpec,
+    TrainConfig,
     _from_dict,
 )
 
-_CLASSES = {c.__name__: c for c in (ADMMOptions, PeakSearchConfig, ProblemSpec, ModelConfig)}
+_CLASSES = {c.__name__: c for c in (ADMMOptions, PeakSearchConfig, ProblemSpec, ModelConfig,
+                                    DataConfig, TrainConfig)}
 # a field that only one of the classes has, to recognize a bare dictionary
 _MARKERS = (("g_update", ADMMOptions), ("refine_points", PeakSearchConfig),
-            ("num_layers", ModelConfig), ("Nb", ProblemSpec))
+            ("num_layers", ModelConfig), ("Nb", ProblemSpec), ("snr_demod", DataConfig),
+            ("sgdr_t0", TrainConfig))
 
 
 def options_from_jax(obj: Any, cls: Optional[type] = None):
@@ -122,3 +128,34 @@ def params_from_jax(tree, cfg: ModelConfig):
         raise ValueError("shape mismatch: " + ", ".join(
             f"{k} {tuple(got[k].shape)} vs {tuple(want[k].shape)}" for k in bad))
     return {k: got[k] for k in want}
+
+
+def _leaf_to_flax(key: str, x: torch.Tensor, num_heads: int):
+    """(flax path, numpy array) of one state_dict entry; the inverse of
+    ``_convert_leaf``."""
+    *mods, name = key.split(".")
+    a = x.detach().cpu().to(torch.float32).numpy()
+    attention = len(mods) >= 2 and mods[-2] == "attention"
+    if name == "weight":
+        name, a = "kernel", a.T
+        if attention:
+            heads = (num_heads, a.shape[0] // num_heads) if mods[-1] == "out" else (
+                num_heads, a.shape[1] // num_heads)
+            a = a.reshape(*heads, -1) if mods[-1] == "out" else a.reshape(a.shape[0], *heads)
+    elif name == "bias" and attention and mods[-1] != "out":
+        a = a.reshape(num_heads, -1)
+    return (*mods, name), np.array(a, dtype=np.float32, order="C")
+
+
+def params_to_jax(state_dict, cfg: ModelConfig):
+    """The flax ``params`` collection (nested dicts of numpy float32 arrays,
+    scalars 0-d) of a port state_dict; the inverse of ``params_from_jax``.
+    Wrap it as ``{"params": tree}`` for flax's ``Module.apply``."""
+    tree: dict = {}
+    for key, x in state_dict.items():
+        path, a = _leaf_to_flax(key, x, cfg.num_heads)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return tree

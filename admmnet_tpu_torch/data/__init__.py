@@ -1,1 +1,1 @@
-"""Input data: the bundled anchor case."""
+"""Input data: the bundled anchor case and the synthetic datasets."""

@@ -1,24 +1,43 @@
-"""Clenshaw kernel of the chebyshev GLayer: sum_k c_k T_k(M / ||M||_F).
+"""Clenshaw kernels of the chebyshev GLayer: sum_k c_k T_k(M / ||M||_F), its
+training forward and its reversible backward.
 
-Counterpart of ``admmnet_tpu/kernels/cheb_filter.py ::
-cheb_filter_matrices`` (the inference forward).  ``cheb_filter_matrices``
-launches the CUDA kernel of ``csrc/cheb_filter.cu`` for a CUDA tensor and
-runs ``cheb_filter_matrices_plain`` (the same dataflow in batched torch
-ops) for a CPU tensor.  ``apply_spectral_filter_kernel`` is the GLayer's
-engine: it samples the learned filter at the Chebyshev nodes, projects the
-samples onto coefficients and scales by r in torch, as the JAX package
-does outside its kernel, and runs the Clenshaw recurrence through
-``cheb_filter_matrices``.
+Counterparts of ``admmnet_tpu/kernels/cheb_filter.py``:
 
-Dataflow (kernel and plain version alike): A = M / max(||M||_F, 1e-20);
-b_1 = b_2 = 0; for j = degree-1 .. 1, b_0 = herm(c_j I + 2 A b_1 - b_2);
-out = herm(c_0 I + A b_1 - b_2), herm(X) = (X + X^H)/2, every complex
-product a 3-product Karatsuba in IEEE fp32.  The output is in the
-normalized domain (the caller scales by r).  The TPU kernel's one-pass bf16
-products become fp32 products; its per-step re-projection is kept.
+- K4, ``cheb_filter_matrices`` (the inference forward): the CUDA kernel of
+  ``csrc/cheb_filter.cu``;
+- K5, ``_cheb_fwd_with_residuals`` (the training forward): the same kernel,
+  which then also writes the final Clenshaw carries (b_1, b_2);
+- K6, ``_cheb_bwd`` (the reversible, checkpoint-free backward): the CUDA
+  kernel of ``csrc/cheb_bwd.cu``.
 
-The kernel has no backward yet (the port of training adds it): a CUDA call
-that would need a gradient raises.
+Each has a plain version, the same dataflow in batched torch ops, which a
+CPU tensor runs; a CUDA tensor launches the kernel.  ``ChebFilterFn`` wires
+K5 and K6 (or their plain versions) into autograd, and
+``cheb_filter_matrices`` takes it whenever a gradient is needed, on both
+devices, so the CPU runs the same reversible math as the card.
+``apply_spectral_filter_kernel`` is the GLayer's engine: it samples the
+learned filter at the Chebyshev nodes, projects the samples onto
+coefficients and scales by r in torch, as the JAX package does outside its
+kernel, and runs the Clenshaw recurrence through ``cheb_filter_matrices``.
+
+Forward dataflow: A = M / max(||M||_F, 1e-20); b_1 = b_2 = 0; for
+j = degree-1 .. 1, b_0 = herm(c_j I + 2 A b_1 - b_2); out = herm(c_0 I +
+A b_1 - b_2), herm(X) = (X + X^H)/2, every complex product a 3-product
+Karatsuba in IEEE fp32.  The output is in the normalized domain (the caller
+scales by r).  The TPU kernel's one-pass bf16 products become fp32
+products; its per-step re-projection is kept.
+
+Backward (torch's complex convention: the conjugate of JAX's raw
+cotangent), for the cotangent Y of out: V = herm(Y); cbar_0 = Re tr V;
+Abar = V b_1; u = A V; v = -V; for j = 1 .. degree-2, with (s, t) =
+(b_j, b_{j+1}) rebuilt upward from the carries: cbar_j = Re tr u,
+Abar += 2 u t, (u, v) <- (v + 2 A u, -u), (s, t) <- (t, herm(c_j I + 2 A t
+- s)); finally cbar_{degree-1} = Re tr u.  The JAX kernel's last product
+with the rebuilt b_degree is left out: b_degree is exactly zero.  Then
+the chain through the normalization, in torch ops:
+Mbar = (Abar - Re(sum conj(A) Abar) A) / r.  Products are fp32 by
+default, the counterpart of ``bwd_three_pass=False``; ``three_pass=True``
+selects the TPU kernel's literal 3-pass split-bf16 product.
 """
 
 from __future__ import annotations
@@ -29,12 +48,23 @@ from admmnet_tpu_torch.kernels.polar import LaunchCounter, karatsuba, padded_sid
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
 
 SCRATCH_PLANES = 7
+BWD_SCRATCH_PLANES = 11
 
-launches = LaunchCounter()
+launches = LaunchCounter()  # K4: the inference forward
+fwd_launches = LaunchCounter()  # K5: the training forward
+bwd_launches = LaunchCounter()  # K6: the reversible backward
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
+
+
+def _herm_planes(Xr: torch.Tensor, Xi: torch.Tensor):
+    return 0.5 * (Xr + _t(Xr)), 0.5 * (Xi - _t(Xi))
+
+
+def _trace(X: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)
 
 
 def _check(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> int:
@@ -51,75 +81,246 @@ def _check(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> int:
     return padded_side(M.shape[-1])
 
 
+# ---- plain versions: the kernels' dataflow in batched torch ops ------------
+
+
+def _normalized(M: torch.Tensor):
+    """(Ar, Ai) of A = M / max(||M||_F, 1e-20), in M's real precision."""
+    Mr, Mi = M.real, M.imag
+    s = torch.sum(Mr * Mr + Mi * Mi, dim=(-1, -2), keepdim=True)
+    rinv = 1.0 / torch.clamp_min(torch.sqrt(s), 1e-20)
+    return Mr * rinv, Mi * rinv
+
+
+def cheb_filter_matrices_plain_with_residuals(M: torch.Tensor, coeffs: torch.Tensor,
+                                              degree: int):
+    """The training forward's computation in torch ops: (out, carries) with
+    out complex (..., m, m) and carries the final (b_1, b_2) as the real
+    planes (b1r, b1i, b2r, b2i), each (..., m, m).  complex64 inputs
+    compute in fp32, complex128 inputs in fp64."""
+    m = M.shape[-1]
+    Ar, Ai = _normalized(M)
+    c = coeffs.to(Ar.dtype)[..., None, None]
+    eye = torch.eye(m, dtype=Ar.dtype, device=M.device)
+    b1r = b1i = b2r = b2i = torch.zeros_like(Ar)
+    for j in range(degree - 1, 0, -1):
+        Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
+        b0r, b0i = _herm_planes((c[..., j, :, :] * eye + 2.0 * Pr) - b2r, 2.0 * Pi - b2i)
+        b1r, b1i, b2r, b2i = b0r, b0i, b1r, b1i
+    Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
+    outr, outi = _herm_planes((c[..., 0, :, :] * eye + Pr) - b2r, Pi - b2i)
+    return torch.complex(outr, outi), (b1r, b1i, b2r, b2i)
+
+
 def cheb_filter_matrices_plain(M: torch.Tensor, coeffs: torch.Tensor,
                                degree: int) -> torch.Tensor:
     """The kernel's computation in torch ops; complex64 (..., m, m) in/out."""
+    return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree)[0]
+
+
+def cheb_bwd_plain(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
+                   degree: int, three_pass: bool = False):
+    """The reversible backward's computation in torch ops: (Abar, cbar) for
+    the output cotangent Y (..., m, m), in the normalized domain and torch's
+    complex convention.  ``carries``: the forward's (b1r, b1i, b2r, b2i),
+    each (..., m, m).  ``three_pass`` makes every product the 3-pass
+    split-bf16 product."""
     m = M.shape[-1]
-    Mr = M.real.to(torch.float32)
-    Mi = M.imag.to(torch.float32)
-    s = torch.sum(Mr * Mr + Mi * Mi, dim=(-1, -2), keepdim=True)
-    rinv = 1.0 / torch.clamp_min(torch.sqrt(s), 1e-20)
-    Ar, Ai = Mr * rinv, Mi * rinv
-    c = coeffs.to(torch.float32)[..., None, None]
-    eye = torch.eye(m, dtype=torch.float32, device=M.device)
-    b1r = b1i = b2r = b2i = torch.zeros_like(Mr)
-    for j in range(degree - 1, 0, -1):
-        Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
-        b0r = (c[..., j, :, :] * eye + 2.0 * Pr) - b2r
-        b0i = 2.0 * Pi - b2i
-        b0r, b0i = 0.5 * (b0r + _t(b0r)), 0.5 * (b0i - _t(b0i))
-        b1r, b1i, b2r, b2i = b0r, b0i, b1r, b1i
-    Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
-    outr = (c[..., 0, :, :] * eye + Pr) - b2r
-    outi = Pi - b2i
-    return torch.complex(0.5 * (outr + _t(outr)), 0.5 * (outi - _t(outi)))
+    Ar, Ai = _normalized(M)
+    c = coeffs.to(Ar.dtype)[..., None, None]
+    eye = torch.eye(m, dtype=Ar.dtype, device=M.device)
+    Vr, Vi = _herm_planes(Y.real.to(Ar.dtype), Y.imag.to(Ar.dtype))
+    sr, si, tr, ti = carries
+    cbar = [_trace(Vr)]
+    ABr, ABi = karatsuba(Vr, Vi, sr, si, three_pass)
+    ur, ui = karatsuba(Ar, Ai, Vr, Vi, three_pass)
+    vr, vi = -Vr, -Vi
+    for j in range(1, degree - 1):
+        cbar.append(_trace(ur))
+        Pr, Pi = karatsuba(ur, ui, tr, ti, three_pass)
+        ABr, ABi = ABr + 2.0 * Pr, ABi + 2.0 * Pi
+        Qr, Qi = karatsuba(Ar, Ai, ur, ui, three_pass)
+        ur, ui, vr, vi = vr + 2.0 * Qr, vi + 2.0 * Qi, -ur, -ui
+        if j == degree - 2:
+            break  # b_degree feeds nothing
+        Rr, Ri = karatsuba(Ar, Ai, tr, ti, three_pass)
+        nr, ni = _herm_planes((c[..., j, :, :] * eye + 2.0 * Rr) - sr, 2.0 * Ri - si)
+        sr, si, tr, ti = tr, ti, nr, ni
+    if degree >= 2:
+        cbar.append(_trace(ur))
+    return torch.complex(ABr, ABi), torch.stack(cbar, dim=-1)
 
 
-def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
-    """Launch the kernel on CUDA tensors; returns its zero-padded output
-    planes (Gr, Gi), each (B, P, P) float32 with B the flattened batch."""
-    P = _check(M, coeffs, degree)
+def normalization_backward(M: torch.Tensor, Abar: torch.Tensor) -> torch.Tensor:
+    """Cotangent of M through A = M / max(||M||_F, 1e-20), given Abar, in
+    torch's convention: (Abar - Re(sum conj(A) Abar) A) / r."""
+    r = spectral_bound(M)
+    A = M / r
+    inner = torch.sum((torch.conj(A) * Abar).real, dim=(-1, -2), keepdim=True)
+    return (Abar - inner * A) / r
+
+
+# ---- the kernels ------------------------------------------------------------
+
+
+def _planes(X: torch.Tensor, P: int):
+    """Zero-padded contiguous (B, P, P) float32 planes of complex (B, m, m)."""
+    m = X.shape[-1]
+    pad = (0, P - m, 0, P - m)
+    return (torch.nn.functional.pad(X.real.to(torch.float32), pad).contiguous(),
+            torch.nn.functional.pad(X.imag.to(torch.float32), pad).contiguous())
+
+
+def _require_cuda(M: torch.Tensor) -> None:
     if M.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {M.device}")
+
+
+def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries: bool):
+    P = _check(M, coeffs, degree)
+    _require_cuda(M)
     from admmnet_tpu_torch.kernels import _build
 
     m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
     B = Mf.shape[0]
-    pad = (0, P - m, 0, P - m)
-    Mr = torch.nn.functional.pad(Mf.real, pad).contiguous()
-    Mi = torch.nn.functional.pad(Mf.imag, pad).contiguous()
+    Mr, Mi = _planes(Mf, P)
     c = coeffs.reshape(B, degree).to(torch.float32).contiguous()
     Gr = torch.empty_like(Mr)
     Gi = torch.empty_like(Mi)
+    res = tuple(torch.empty_like(Mr) for _ in range(4)) if carries else ()
+    ptrs = [x.data_ptr() for x in res] if carries else [None] * 4
     scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32, device=M.device)
     lib = _build.lib()
     with torch.cuda.device(M.device):
         err = lib.cheb_filter_launch(
             Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
-            None, None, None, None, scratch.data_ptr(), B, P, m, degree,
+            *ptrs, scratch.data_ptr(), B, P, m, degree,
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "cheb_filter_launch")
-    launches.count += 1
+    (fwd_launches if carries else launches).count += 1
+    return Gr, Gi, res
+
+
+def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+    """Launch K4 on CUDA tensors; returns its zero-padded output planes
+    (Gr, Gi), each (B, P, P) float32 with B the flattened batch."""
+    Gr, Gi, _ = _launch_forward(M, coeffs, degree, carries=False)
     return Gr, Gi
+
+
+def cheb_fwd_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+    """Launch K5 on CUDA tensors: (Gr, Gi, carries), the zero-padded output
+    planes and the final carries (b1r, b1i, b2r, b2i), each (B, P, P)
+    float32.  (Gr, Gi) equal K4's bit for bit."""
+    return _launch_forward(M, coeffs, degree, carries=True)
+
+
+def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
+                    degree: int, three_pass: bool = False):
+    """Launch K6 on CUDA tensors: (ABr, ABi, cbar), Abar's zero-padded planes
+    (B, P, P) and cbar (B, degree), float32.  ``carries``: K5's four
+    (B, P, P) planes; ``Y``: the output's cotangent, shaped like M."""
+    P = _check(M, coeffs, degree)
+    _require_cuda(M)
+    if Y.shape != M.shape or Y.device != M.device:
+        raise ValueError(f"cotangent {tuple(Y.shape)} on {Y.device} does not match M")
+    from admmnet_tpu_torch.kernels import _build
+
+    m = M.shape[-1]
+    Mf = M.reshape(-1, m, m)
+    B = Mf.shape[0]
+    for x in carries:
+        if (tuple(x.shape) != (B, P, P) or x.dtype != torch.float32 or x.device != M.device
+                or not x.is_contiguous()):
+            raise ValueError("carries must be K5's contiguous (B, P, P) float32 planes")
+    Mr, Mi = _planes(Mf, P)
+    Yr, Yi = _planes(Y.reshape(-1, m, m), P)
+    c = coeffs.reshape(B, degree).to(torch.float32).contiguous()
+    ABr = torch.empty_like(Mr)
+    ABi = torch.empty_like(Mi)
+    cbar = torch.empty((B, degree), dtype=torch.float32, device=M.device)
+    scratch = torch.empty((B, BWD_SCRATCH_PLANES, P, P), dtype=torch.float32,
+                          device=M.device)
+    lib = _build.lib()
+    with torch.cuda.device(M.device):
+        err = lib.cheb_bwd_launch(
+            Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Yr.data_ptr(), Yi.data_ptr(),
+            *(x.data_ptr() for x in carries), ABr.data_ptr(), ABi.data_ptr(),
+            cbar.data_ptr(), scratch.data_ptr(), B, P, m, degree, int(three_pass),
+            torch.cuda.current_stream(M.device).cuda_stream,
+        )
+    _build.check(err, "cheb_bwd_launch")
+    bwd_launches.count += 1
+    return ABr, ABi, cbar
+
+
+def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+    """(out, carries) of the training forward: K5 for a CUDA tensor (carries
+    as its padded planes), the plain version for a CPU tensor."""
+    if M.device.type == "cpu":
+        return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree)
+    if M.device.type != "cuda":
+        raise ValueError(f"unsupported device {M.device}")
+    m = M.shape[-1]
+    Gr, Gi, carries = cheb_fwd_planes(M, coeffs, degree)
+    return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape), carries
+
+
+def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, degree: int,
+             three_pass: bool = False):
+    """(Abar, cbar) of the reversible backward, in the normalized domain: K6
+    for a CUDA tensor, ``cheb_bwd_plain`` for a CPU tensor; ``carries`` as
+    ``cheb_fwd_with_residuals`` returned them on that device."""
+    if M.device.type == "cpu":
+        return cheb_bwd_plain(M, coeffs, carries, Y, degree, three_pass)
+    if M.device.type != "cuda":
+        raise ValueError(f"unsupported device {M.device}")
+    m = M.shape[-1]
+    ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree, three_pass)
+    Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]).reshape(M.shape)
+    return Abar, cbar.reshape(coeffs.shape)
+
+
+class ChebFilterFn(torch.autograd.Function):
+    """The normalized-domain Clenshaw evaluation with its reversible
+    backward: forward K5 (CUDA) or its plain version (CPU), saving M, the
+    coefficients and the final carries; backward K6 or ``cheb_bwd_plain``,
+    then ``normalization_backward``.  On the CPU a complex128 M runs the
+    plain versions in fp64 (for gradcheck)."""
+
+    @staticmethod
+    def forward(ctx, M, coeffs, degree: int, three_pass: bool = False):
+        out, carries = cheb_fwd_with_residuals(M, coeffs, degree)
+        ctx.save_for_backward(M, coeffs, *carries)
+        ctx.degree = degree
+        ctx.three_pass = three_pass
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        M, coeffs, *carries = ctx.saved_tensors
+        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree, ctx.three_pass)
+        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None, None
 
 
 def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> torch.Tensor:
     """sum_k c_k T_k(M / ||M||_F) for batched Hermitian complex64 (..., m, m),
     m <= 128, with coefficients (..., degree) (c_0 pre-halved).
 
-    A CUDA tensor launches the CUDA kernel (one thread block per matrix); a
-    CPU tensor runs ``cheb_filter_matrices_plain``.  Any other device
-    raises, and so does a CUDA call that would need a gradient.
+    When a gradient is needed this is ``ChebFilterFn`` (K5 + K6 on CUDA,
+    their plain versions on the CPU, fp32 products).  Otherwise a CUDA
+    tensor launches K4 (one thread block per matrix) and a CPU tensor runs
+    ``cheb_filter_matrices_plain``.  Any other device raises.
     """
     _check(M, coeffs, degree)
-    if M.device.type == "cpu":
-        return cheb_filter_matrices_plain(M, coeffs, degree)
-    if M.device.type != "cuda":
+    if M.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {M.device}")
     if torch.is_grad_enabled() and (M.requires_grad or coeffs.requires_grad):
-        raise NotImplementedError("the Clenshaw kernel has no backward yet")
+        return ChebFilterFn.apply(M, coeffs, degree)
+    if M.device.type == "cpu":
+        return cheb_filter_matrices_plain(M, coeffs, degree)
     if M.numel() == 0:
         return M.clone()
     m = M.shape[-1]

@@ -4,7 +4,9 @@
 // the learned spectral filter of the chebyshev GLayer.
 //
 // Replaces admmnet_tpu/kernels/cheb_filter.py :: cheb_filter_matrices
-// (kernel body _cheb_kernel), the GLayer's cheb_impl="pallas" engine.
+// (kernel body _cheb_kernel), the GLayer's cheb_impl="pallas" engine, and,
+// with the carry planes given, :: _cheb_fwd_with_residuals (the same body
+// with res_refs), the forward of its custom VJP.
 //
 // Recurrence, per matrix (b_1 = b_2 = 0):
 //   b_0 = herm(c_j I + 2 A b_1 - b_2),  j = degree-1 .. 1;  (b_1, b_2) <- (b_0, b_1)
@@ -44,6 +46,8 @@ __global__ void __launch_bounds__(NT) cheb_filter_kernel(const float* __restrict
                                                           const float* __restrict__ Mi_all,
                                                           const float* __restrict__ coeffs,
                                                           float* Gr_all, float* Gi_all,
+                                                          float* C1r_all, float* C1i_all,
+                                                          float* C2r_all, float* C2i_all,
                                                           float* scratch, int m, int degree) {
   constexpr int MT = P / TS;
   __shared__ Tiles<P> sm;
@@ -134,27 +138,44 @@ __global__ void __launch_bounds__(NT) cheb_filter_kernel(const float* __restrict
       Gr[idx] = cr[i][jj];
       Gi[idx] = ci[i][jj];
     }
+  // training forward (K5): the final carries (b_1, b_2), the only residuals
+  // the reversible backward (cheb_bwd.cu) needs.  The last loop step ended
+  // with a barrier and nothing since wrote b_1 or b_2.
+  if (C1r_all != nullptr) {
+    for (int e = threadIdx.x; e < P * P; e += NT) {
+      C1r_all[off + e] = b1r[e];
+      C1i_all[off + e] = b1i[e];
+      C2r_all[off + e] = b2r[e];
+      C2i_all[off + e] = b2i[e];
+    }
+  }
 }
 
 }  // namespace admmk
 
 // C entry point.  Mr, Mi: (B, P, P) float planes, zero-padded past the
 // logical side m; coeffs: (B, degree) floats on the device; Gr, Gi: (B, P, P),
-// written; scratch: B * 7 * P * P floats.  b1r, b1i, b2r, b2i are reserved
-// for the final Clenshaw carries the training forward needs and must be
-// null.  Returns the launch's cudaError_t.
+// written; scratch: B * 7 * P * P floats.  b1r, b1i, b2r, b2i: all null (the
+// inference forward) or all (B, P, P) planes that receive the final Clenshaw
+// carries (the training forward); the output G is the same either way, bit
+// for bit, since both run the same instantiation.  Returns the launch's
+// cudaError_t.
 extern "C" int cheb_filter_launch(const float* Mr, const float* Mi, const float* coeffs,
                                   float* Gr, float* Gi, float* b1r, float* b1i, float* b2r,
                                   float* b2i, float* scratch, int B, int P, int m, int degree,
                                   void* stream) {
   using namespace admmk;
   if (B <= 0 || degree < 1 || m < 1 || m > P) return static_cast<int>(cudaErrorInvalidValue);
-  if (b1r || b1i || b2r || b2i) return static_cast<int>(cudaErrorNotSupported);
+  const bool carries = b1r != nullptr;
+  if ((b1i != nullptr) != carries || (b2r != nullptr) != carries || (b2i != nullptr) != carries)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 112)
-    cheb_filter_kernel<112><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, scratch, m, degree);
+    cheb_filter_kernel<112><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i,
+                                              scratch, m, degree);
   else if (P == 128)
-    cheb_filter_kernel<128><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, scratch, m, degree);
+    cheb_filter_kernel<128><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i,
+                                              scratch, m, degree);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -11,6 +11,12 @@ through ``core.convert.params_from_jax`` by renaming alone:
 - the reference's stop-gradients (``ref_stop_gradients``) are ``.detach()``,
   and so is the eigenvector detach of the eigh GLayer.
 
+Parameters start as flax's do: every ``Dense`` (an ``nn.Linear``) draws
+its weight from ``lecun_normal`` (a normal truncated at two standard
+deviations, of variance 1 / fan_in) and starts its bias at zero; the scalar
+parameters start at the constants of the flax modules.  The draws come
+from torch's global generator, as ``nn.Linear``'s own do.
+
 All modules take and return batched tensors with a leading instance dim.
 """
 
@@ -34,6 +40,22 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def scalar(value: float) -> nn.Parameter:
     return nn.Parameter(torch.tensor(value, dtype=torch.float32))
+
+
+# standard deviation of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense``'s initializers: a lecun_normal
+    weight and a zero bias."""
+
+    def reset_parameters(self) -> None:
+        std = math.sqrt(1.0 / self.in_features) / _TRUNCATED_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std)
+            if self.bias is not None:
+                self.bias.zero_()
 
 
 class PhiLayer(nn.Module):
@@ -65,8 +87,8 @@ class HLayer(nn.Module):
         self.epsilon = epsilon
         self.rho = scalar(1.0)
         self.projection_weight = scalar(1.0)
-        self.correction_hidden = nn.Linear(dim, hidden)
-        self.correction_out = nn.Linear(hidden, dim)
+        self.correction_hidden = Dense(dim, hidden)
+        self.correction_out = Dense(hidden, dim)
 
     def forward(self, phi, G, Z, sigma):
         n = self.dim
@@ -110,8 +132,8 @@ class GLayer(nn.Module):
         self.register_parameter("lambda", scalar(0.1))
         self.rho = scalar(1.0)
         self.threshold = scalar(0.0)
-        self.value_hidden = nn.Linear(1, value_hidden)
-        self.value_out = nn.Linear(value_hidden, 1)
+        self.value_hidden = Dense(1, value_hidden)
+        self.value_out = Dense(value_hidden, 1)
 
     def spectral_filter(self, w: torch.Tensor) -> torch.Tensor:
         """softplus(w - thr) * sigmoid(MLP(|w|)), pointwise on (..., k)."""
@@ -162,8 +184,8 @@ class ZLayer(nn.Module):
         self.ref_stop_gradients = ref_stop_gradients
         self.register_parameter("lambda", scalar(1.0))
         self.rho = scalar(1.0)
-        self.scale_hidden = nn.Linear(3, scale_hidden)
-        self.scale_out = nn.Linear(scale_hidden, 1)
+        self.scale_hidden = Dense(3, scale_hidden)
+        self.scale_out = Dense(scale_hidden, 1)
 
     def forward(self, phi, h, G, Z_prev, k: int):
         lam = softplus(self._parameters["lambda"])

@@ -6,12 +6,18 @@ Counterparts of ``admmnet_tpu/models/nets.py``; submodule names follow the
 flax names (``trunk.phi_0``, ``trunk.g_0``, ``peak_head``, ...), so a flax
 checkpoint loads through ``core.convert.params_from_jax`` by renaming.
 
-Each depth has its own parameters.  G and Z start as complex zeros.
+Each depth has its own parameters.  G and Z start as complex zeros.  The
+returned phi reads the G and Z of the depth before the last, so the last
+depth runs its Phi step only: its H, G and Z parameters stay (as in the
+flax tree) and, with zero gradients, change only by weight decay, as in
+the JAX package.
 ``learned_sensing`` adds a trainable measurement matrix W applied to the
 observation, y' = y W^T, as two real products.  The nets run on the device
 of their inputs; on CUDA the chebyshev GLayer with ``cheb_impl="pallas"``
-launches the Clenshaw kernel, which has no backward yet: run such a net
-under ``torch.inference_mode()`` (a call that would need a gradient raises).
+launches the Clenshaw kernels: K4 when no gradient is needed, the training
+forward K5 and the reversible backward K6 when one is.  ``train()`` mode
+turns on the attention head's dropout; the trunk and the spectrum head
+have none.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ class _Trunk(nn.Module):
         phi = torch.zeros((*batch, n), dtype=COMPLEX, device=y.device)
         for k in range(cfg.num_layers):
             phi = getattr(self, f"phi_{k}")(y, b, G, Z)
+            if k == cfg.num_layers - 1:
+                break  # the last depth's H, G and Z feed nothing returned
             h = getattr(self, f"h_{k}")(phi, G, Z, sigma)
             G = getattr(self, f"g_{k}")(phi, h, Z)
             Z = getattr(self, f"z_{k}")(phi, h, G, Z, k)
@@ -76,7 +84,10 @@ class _Trunk(nn.Module):
 
 
 class PhiEstADMMNet(nn.Module):
-    """Trunk-only net regressing the dual polynomial phi."""
+    """Trunk-only net regressing the dual polynomial phi.  Its
+    ``ADMM_LR_MODULES`` (the trunk) train at ``admm_lr_scale * lr``."""
+
+    ADMM_LR_MODULES = ("trunk",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -89,7 +100,10 @@ class PhiEstADMMNet(nn.Module):
 
 class ADMMNet(nn.Module):
     """Trunk plus learned peak head: ``cfg.head`` "attention" (direct
-    regression) or "spectrum" (coarse-to-fine spectral search)."""
+    regression) or "spectrum" (coarse-to-fine spectral search).  The trunk
+    trains at ``admm_lr_scale * lr``, the head at ``lr``."""
+
+    ADMM_LR_MODULES = ("trunk",)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()

@@ -9,8 +9,12 @@ regression heads: tau = sigmoid, f = tanh (range (-1, 1), as the
 reference), shared confidence head.  The attention is written as explicit
 products in flax's ``MultiHeadDotProductAttention`` layout (query / key /
 value projections to (heads, head_dim), logits scaled by 1/sqrt(head_dim),
-softmax over the grid, output projection from (heads, head_dim)).  Dropout
-is off: the port runs this head at inference only.
+softmax over the grid, output projection from (heads, head_dim)).  In
+``train()`` mode the attention weights go through dropout (rate
+``ATTENTION_DROPOUT``, the JAX head's) as in flax's attention: one keep mask
+over the grid, shared by the batch and the heads, and the kept weights
+scaled by 1 / (1 - rate).  ``dropout_generator``
+(``None``: torch's default generator of the device) draws the masks.
 
 ``SpectrumPeakHead``: a differentiable coarse-to-fine spectral search.  It
 evaluates |<phi, a(tau, f)>|^2 on the coarse separable grid, takes the
@@ -26,10 +30,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from admmnet_tpu_torch.models.layers import scalar, softplus
+from admmnet_tpu_torch.models.layers import Dense, scalar, softplus
 from admmnet_tpu_torch.ops.atoms import delay_steering, doppler_steering
 from admmnet_tpu_torch.peaks.search import _local_max_mask
 from admmnet_tpu_torch.peaks.spectrum import spectrum_grid
+
+ATTENTION_DROPOUT = 0.1
 
 
 def _grid_init(M: int, N: int) -> torch.Tensor:
@@ -46,10 +52,11 @@ class _Attention(nn.Module):
             raise ValueError(f"{features} features do not split into {num_heads} heads")
         self.num_heads = num_heads
         self.head_dim = features // num_heads
-        self.query = nn.Linear(features, features)
-        self.key = nn.Linear(features, features)
-        self.value = nn.Linear(features, features)
-        self.out = nn.Linear(features, features)
+        self.dropout_generator = None
+        self.query = Dense(features, features)
+        self.key = Dense(features, features)
+        self.value = Dense(features, features)
+        self.out = Dense(features, features)
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """x: (B, features) queries; kv: (n, features).  Returns (B, features)."""
@@ -59,6 +66,10 @@ class _Attention(nn.Module):
         k = self.key(kv).reshape(kv.shape[0], H, D)
         v = self.value(kv).reshape(kv.shape[0], H, D)
         w = torch.softmax(torch.einsum("...hd,khd->...hk", q, k), dim=-1)
+        if self.training:
+            keep = 1.0 - ATTENTION_DROPOUT
+            u = torch.rand(kv.shape[0], generator=self.dropout_generator, device=w.device)
+            w = w * ((u < keep).to(w.dtype) / keep)
         o = torch.einsum("...hk,khd->...hd", w, v)
         return self.out(o.reshape(*x.shape[:-1], H * D))
 
@@ -69,22 +80,22 @@ class PeakSearchHead(nn.Module):
         super().__init__()
         n = M * N
         self.L_max = L_max
-        self.feat1 = nn.Linear(2 * n, hidden_dim)
-        self.feat2 = nn.Linear(hidden_dim, hidden_dim)
+        self.feat1 = Dense(2 * n, hidden_dim)
+        self.feat2 = Dense(hidden_dim, hidden_dim)
         self.position_grid = nn.Parameter(_grid_init(M, N))
-        self.position_projection = nn.Linear(2, hidden_dim)
+        self.position_projection = Dense(2, hidden_dim)
         self.attention = _Attention(hidden_dim, num_heads)
         widths = (hidden_dim, hidden_dim // 2, hidden_dim // 4, hidden_dim // 8)
         for i in range(3):
-            self.add_module(f"peak{i}", nn.Linear(widths[i], widths[i + 1]))
+            self.add_module(f"peak{i}", Dense(widths[i], widths[i + 1]))
         w = widths[-1]
         for t in range(L_max):
-            self.add_module(f"tau{t}_hidden", nn.Linear(w, 32))
-            self.add_module(f"tau{t}_out", nn.Linear(32, 1))
-            self.add_module(f"f{t}_hidden", nn.Linear(w, 32))
-            self.add_module(f"f{t}_out", nn.Linear(32, 1))
-        self.conf_hidden = nn.Linear(w, 16)
-        self.conf_out = nn.Linear(16, 1)
+            self.add_module(f"tau{t}_hidden", Dense(w, 32))
+            self.add_module(f"tau{t}_out", Dense(32, 1))
+            self.add_module(f"f{t}_hidden", Dense(w, 32))
+            self.add_module(f"f{t}_out", Dense(32, 1))
+        self.conf_hidden = Dense(w, 16)
+        self.conf_out = Dense(16, 1)
 
     def forward(self, phi):
         x = torch.cat([phi.real, phi.imag], dim=-1)
@@ -129,8 +140,8 @@ class SpectrumPeakHead(nn.Module):
         self.register_buffer("taus_ax", torch.from_numpy(taus), persistent=False)
         self.register_buffer("fs_ax", torch.from_numpy(fs), persistent=False)
         self.softargmax_beta = scalar(25.0)
-        self.conf_hidden = nn.Linear(4, conf_hidden)
-        self.conf_out = nn.Linear(conf_hidden, 1)
+        self.conf_hidden = Dense(4, conf_hidden)
+        self.conf_out = Dense(conf_hidden, 1)
 
     def forward(self, phi):
         M, N, K, P = self.M, self.N, self.L_max, self.refine_points

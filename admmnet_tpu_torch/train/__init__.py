@@ -1,1 +1,2 @@
-"""Checkpoints and losses of the learned net (the training loop is not ported yet)."""
+"""Training of the learned nets: losses, the SGDR schedule, checkpoints,
+metric files and the training loop."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``admmnet_tpu_torch``) on one GPU.
 
-Drives the two paths of the port through its public entry points on the
+Drives the three paths of the port through its public entry points on the
 card, after building the CUDA kernels from ``admmnet_tpu_torch/kernels/csrc``
 and holding each kernel against its plain PyTorch version:
 
@@ -9,7 +9,12 @@ and holding each kernel against its plain PyTorch version:
   -> batched ADMM solve -> peak list -> detection score;
 - the learned pipeline (phases 10-13): the committed net-3 checkpoint
   (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
-  random-SNR scenes, held against the JAX package's golden output.
+  random-SNR scenes, held against the JAX package's golden output;
+- training (phases 14-17): the Clenshaw training forward K5 and reversible
+  backward K6 against their plain versions, three recipe steps of net-3
+  against the JAX package's golden steps, then ``generate_dataset`` and
+  ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
+  on the card, scored against the committed net-3 checkpoint.
 
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
@@ -28,6 +33,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +46,8 @@ RANDOM_SCENES = ROOT / "tests" / "golden" / "random512_key42.npz"
 GOLDEN_NET3 = ROOT / "tests" / "golden" / "net3_random512_jax.npz"
 NET3 = ROOT / "runs" / "train_net3_r05"
 NET3_RECORDED_F1 = 0.8646  # results/r05/net_depth_r05.json, the TPU kernel's run
+GOLDEN_TRAIN = ROOT / "tests" / "golden" / "net3_train_golden.msgpack"
+NET3_RECORDED_TEST_F1 = 0.878  # results/r05/net_depth_r05.json, matched test F1 (JAX)
 
 ITERS = 100  # full solve budget
 B_SOLVE = 2048  # anchor instances, K2 vs its plain version
@@ -52,6 +60,13 @@ B_K4 = 512  # matrices, K4 vs its plain version (the learned path's batch)
 B_TIME_NET = (2048, 8192)  # K4 timing batches; the net forward at the last
 B_CLI = 128  # scenes of the eval_net CLI check
 CHEB_DEGREE = 48
+B_K56 = 64  # matrices, K5/K6 vs their plain versions
+B_TIME_TRAIN = (256, 2048)  # K5/K6 timing batches; 256 is the training batch
+GOLDEN_BATCH, GOLDEN_STEPS, GOLDEN_STEPS_PER_EPOCH = 64, 3, 27
+TRAIN_ARGS = ("--num-layers", "3", "--g-mode", "chebyshev", "--cheb-impl", "pallas",
+              "--head", "spectrum", "--assignment", "perm", "--spectral-weight", "0.5",
+              "--batch-size", "256", "--lr", "1e-3", "--epochs", "15", "--patience", "100",
+              "--seed", "0")  # runs/train_net3_r05/config.json
 F1_BAND = 0.005  # random-scene gate: F1 >= eigh control - band
 # The card's published peaks (H100 SXM at 700 W, NVIDIA's datasheet):
 # fp32 outside the tensor cores, and device memory bandwidth.
@@ -87,6 +102,31 @@ NET3_PHI_TOL = {"median": 2e-5, "max": 5e-5}
 #   flipped match (1 / 384 targets = 0.0026), RMSEs over the same pairs.
 CLI_DET_TOL = 0.005
 CLI_RMSE_TOL = 1e-3
+# - K5's carries and K6's (Mbar, cbar) vs their plain versions on the same
+#   inputs, and K6's Hermitian-projected Mbar vs torch autograd through the
+#   plain forward, max per-matrix relative error: fp32 sums in another
+#   order through 47 forward steps and 46 rebuilt ones.
+#   ~10x the measured on an H100: carries 1.2e-5; K6 Mbar 1.1e-6, cbar
+#   4.3e-6 (three_pass 1.9e-6 / 4.5e-6; the tolerance covers both); vs
+#   autograd 8.8e-7 / 4.7e-6.
+K5_PLAIN_TOL = 1e-4
+K6_PLAIN_TOL = {"Mbar": 2e-5, "cbar": 5e-5}
+K6_AUTOGRAD_TOL = 5e-5
+# - three net-3 recipe steps vs the JAX golden (fp32 on the CPU): relative
+#   error of each step's loss, and of the parameters' change over the steps
+#   (||p - p_jax|| / ||p_jax - p_init||) over all leaves, which Adam's
+#   normalization amplifies where a gradient is near zero; ~14x and ~8x
+#   the measured 7.3e-8 and 9.0e-3 on an H100.
+GOLDEN_LOSS_TOL = 1e-6
+GOLDEN_PARAM_TOL = 0.07
+# - the training run: the port's net-3 trained on the card from scratch vs
+#   the committed net-3 checkpoint, matched test F1 on the same split; and
+#   the test loss, the quantity training minimizes, must close at least
+#   this share of the gap between the seed-0 init's test loss and the
+#   committed checkpoint's (measured on an H100: 0.85 of it, and matched
+#   F1 0 for the init against 0.8856 for both trained nets).
+TRAIN_F1_BAND = 0.01
+TRAIN_LOSS_GAP_CLOSED = 0.5
 
 
 def log(msg: str) -> None:
@@ -155,6 +195,78 @@ def cheb_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
     return B * (2 * m * m * 8 + degree * 4)
 
 
+def cheb_bwd_flops(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
+    """Useful fp32 operations of K6: 3 degree - 5 Karatsuba products per
+    matrix."""
+    return B * (3 * degree - 5) * 3 * 2.0 * m**3
+
+
+def cheb_bwd_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
+    """K6 reads M, Y (complex64), the four carry planes and the
+    coefficients once and writes Abar and cbar once."""
+    return B * (3 * m * m * 8 + 4 * m * m * 4 + 2 * degree * 4)
+
+
+def cheb_inputs(rng, B: int, dev, m: int = 101, degree: int = CHEB_DEGREE):
+    """Random Hermitian matrices, the second half with a dominant eigenvalue
+    (A's spectral radius near 1, as the GLayer's lifted matrices have), the
+    last one zero, with coefficients and a random cotangent."""
+    M = random_hermitian(rng, B, m, dev)
+    v = torch.from_numpy(rng.normal(size=(B // 2, m)) + 1j * rng.normal(size=(B // 2, m)))
+    v = (v / torch.linalg.norm(v, dim=-1, keepdim=True)).to(torch.complex64).to(dev)
+    M[B // 2:] += 300.0 * v[:, :, None] * v.conj()[:, None, :]
+    M[-1] = 0
+    c = torch.from_numpy((rng.normal(size=(B, degree)) * 0.3).astype(np.float32)).to(dev)
+    Y = torch.from_numpy((rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+                          ).astype(np.complex64)).to(dev)
+    return M, c, Y
+
+
+def herm(X: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (X + X.conj().transpose(-1, -2))
+
+
+def param_change_error(after: dict, golden_after: dict, init: dict) -> float:
+    """||p - p_gold|| / ||p_gold - p_init|| over every leaf of state_dicts."""
+    num = sum(float(torch.sum((after[k].cpu() - golden_after[k]) ** 2)) for k in init)
+    den = sum(float(torch.sum((golden_after[k] - init[k]) ** 2)) for k in init)
+    return (num / den) ** 0.5
+
+
+def golden_steps(dev):
+    """Three net-3 recipe steps on ``dev`` from the JAX golden's init, on the
+    golden's batches: (losses, golden losses, parameter change error)."""
+    from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.train.checkpoint import msgpack_decode
+    from admmnet_tpu_torch.train.schedules import sgdr_schedule
+    from admmnet_tpu_torch.train.trainer import batch_to_device, build_steps, make_optimizer
+
+    run = json.loads((NET3 / "config.json").read_text())
+    cfg = options_from_jax(run["model"])
+    tcfg = options_from_jax(run["train"])
+    gold = msgpack_decode(GOLDEN_TRAIN.read_bytes())
+    init = params_from_jax(gold["init"]["params"], cfg)
+    after_gold = params_from_jax(gold["after"]["params"], cfg)
+    model = ADMMNet(cfg)
+    model.load_state_dict(init)
+    model.to(dev)
+    opt = make_optimizer(model, tcfg)
+    sched = sgdr_schedule(tcfg.lr, GOLDEN_STEPS_PER_EPOCH, tcfg.epochs, tcfg.sgdr_t0,
+                          tcfg.sgdr_t_mult, tcfg.lr_min)
+    step, _ = build_steps(model, opt, "e2e", sched, tcfg.grad_clip, tcfg.assignment,
+                          tcfg.spectral_weight)
+    with np.load(RANDOM_SCENES) as d:
+        raw = {k: d[k] for k in d.files}
+    raw["L_true"] = np.full(len(raw["y"]), cfg.spec.L_max, np.int32)
+    losses = []
+    for i in range(GOLDEN_STEPS):
+        batch = {k: v[i * GOLDEN_BATCH:(i + 1) * GOLDEN_BATCH] for k, v in raw.items()}
+        losses.append(float(step(batch_to_device(batch, dev), i)))
+    err = param_change_error(model.state_dict(), after_gold, init)
+    return np.array(losses), np.asarray(gold["losses"], np.float64), err
+
+
 def run_cli(main, argv) -> dict:
     """The last stdout line of a CLI's ``main(argv)``, parsed as JSON."""
     buf = io.StringIO()
@@ -192,8 +304,9 @@ class Smoke:
         t0 = time.time()
         _build.lib()
         secs = time.time() - t0
-        log(f"[2 build] K1 polar.cu + K2 fused_admm_fast.cu + K4 cheb_filter.cu, one nvcc "
-            f"each in parallel: {secs:.1f} s (nvcc {_build.build_seconds}) -> "
+        log(f"[2 build] K1 polar.cu + K2 fused_admm_fast.cu + K4/K5 cheb_filter.cu + K6 "
+            f"cheb_bwd.cu, one nvcc each in parallel: {secs:.1f} s (nvcc "
+            f"{_build.build_seconds}) -> "
             f"{_build.library_path().name}")
         for name, text in _build.build_logs.items():
             for ln in text.splitlines():
@@ -499,8 +612,6 @@ class Smoke:
     def learned_clis(self):
         """eval_net --e2e and main_net on the card, each against its own
         result on the CPU for the same input."""
-        import tempfile
-
         from admmnet_tpu_torch.cli import eval_net, main_net
 
         raw = self.raw
@@ -605,6 +716,233 @@ class Smoke:
             f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}); by device time: {top} "
             f"[{self.card}]")
 
+    # 14 ------------------------------------------------------------------
+    def k56_vs_plain(self):
+        from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+        D, m = CHEB_DEGREE, 101
+        M, c, Y = cheb_inputs(np.random.default_rng(4), B_K56, self.dev)
+        G4r, G4i = kc.cheb_filter_planes(M, c, D)
+        Gr, Gi, carries = kc.cheb_fwd_planes(M, c, D)
+        out_p, carries_p = kc.cheb_filter_matrices_plain_with_residuals(M, c, D)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
+        cropped = [x[:, :m, :m] for x in carries]
+        e5 = max(float(rel_err(k[:-1], p[:-1]).max()) for k, p in zip(cropped, carries_p))
+        pad_ok = all(bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
+                     for x in carries)
+        out_k = torch.complex(Gr[:, :m, :m], Gi[:, :m, :m])
+        self.kernels["K5"] = {"max_abs_err": max(
+            float((out_k - out_p).abs().max()),
+            *(float((k - p).abs().max()) for k, p in zip(cropped, carries_p)))}
+        log(f"[14 K5 vs plain] B={B_K56} m={m} degree {D}, random and spiked: output bitwise "
+            f"K4's: {bitwise}; carries vs plain max per-matrix rel err {e5:.3e} (tol "
+            f"{K5_PLAIN_TOL:g}); carry padding exactly 0: {pad_ok}")
+        check(bitwise, "K5's output differs from K4's")
+        check(e5 < K5_PLAIN_TOL and pad_ok, "K5's carries disagree with the plain version")
+
+        worst = 0.0
+        for three_pass in (False, True):
+            Abar, cbar = kc.cheb_bwd(M, c, carries, Y, D, three_pass)
+            Ap, cp = kc.cheb_bwd_plain(M, c, cropped, Y, D, three_pass)
+            Mb, Mbp = kc.normalization_backward(M, Abar), kc.normalization_backward(M, Ap)
+            torch.cuda.synchronize()
+            eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
+            ec = float(rel_err(cbar, cp).max())
+            finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
+                torch.all(torch.isfinite(cbar)))
+            if not three_pass:
+                worst = max(float((Mb - Mbp).abs().max()), float((cbar - cp).abs().max()))
+            log(f"[14 K6 vs plain] three_pass={three_pass}: Mbar max per-matrix rel err "
+                f"{eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar {ec:.3e} (tol "
+                f"{K6_PLAIN_TOL['cbar']:g}); finite: {finite}")
+            check(finite and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
+                  f"K6 (three_pass={three_pass}) disagrees with its plain version")
+        self.kernels["K6"] = {"max_abs_err": worst}
+
+        # through autograd: cheb_filter_matrices (K5 + K6) vs the plain forward
+        grads = []
+        W = Y[:-1]
+        for fn in (kc.cheb_filter_matrices, kc.cheb_filter_matrices_plain):
+            Mg, cg = M[:-1].clone().requires_grad_(True), c[:-1].clone().requires_grad_(True)
+            (fn(Mg, cg, D) * W.conj()).real.sum().backward()
+            grads.append((herm(Mg.grad), cg.grad))
+        eM = float(rel_err(grads[0][0], grads[1][0]).max())
+        ec = float(rel_err(grads[0][1], grads[1][1]).max())
+        log(f"[14 K6 vs autograd] Hermitian part of Mbar vs torch autograd through the plain "
+            f"forward: max per-matrix rel err {eM:.3e}, cbar {ec:.3e} (tol {K6_AUTOGRAD_TOL:g})")
+        check(eM < K6_AUTOGRAD_TOL and ec < K6_AUTOGRAD_TOL, "K6 disagrees with plain autograd")
+
+    # 15 ------------------------------------------------------------------
+    def golden_train_steps(self):
+        t0 = time.time()
+        losses, gold, err = golden_steps(self.dev)
+        e_loss = float(np.max(np.abs(losses - gold) / np.abs(gold)))
+        log(f"[15 golden steps] net-3, {GOLDEN_STEPS} recipe steps of {GOLDEN_BATCH} scenes "
+            f"from the JAX seed-0 init: losses {np.round(losses, 7).tolist()} vs JAX "
+            f"{np.round(gold, 7).tolist()}, max rel err {e_loss:.3e} (tol {GOLDEN_LOSS_TOL:g}); "
+            f"parameter change error {err:.3e} (tol {GOLDEN_PARAM_TOL:g}) [{time.time() - t0:.1f} s]")
+        check(np.all(np.isfinite(losses)), "golden steps: non-finite loss")
+        check(e_loss < GOLDEN_LOSS_TOL and err < GOLDEN_PARAM_TOL, "golden steps vs JAX")
+
+    # 16 ------------------------------------------------------------------
+    def training_run(self):
+        """generate_dataset + train_cli with the net-3 recipe on the card."""
+        from admmnet_tpu_torch.cli import generate_dataset, train_cli
+        from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+        from admmnet_tpu_torch.data.generator import DatasetGenerator
+        from admmnet_tpu_torch.models import ADMMNet
+        from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
+        from admmnet_tpu_torch.train.schedules import sgdr_schedule
+        from admmnet_tpu_torch.train.trainer import (
+            build_steps,
+            evaluate_split,
+            init_model,
+            make_optimizer,
+        )
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        data, work = Path(self.tmp.name) / "fix20_10k", Path(self.tmp.name) / "net3"
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate_dataset.main(["--out", str(data), "--fixed-snr", "20", "--total", "10000",
+                                   "--seed", "13", "--device", "cuda"])
+        t_gen = time.time() - t0
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(["--data", str(data), "--workdir", str(work), *TRAIN_ARGS,
+                            "--device", "cuda"])
+        t_train = time.time() - t0
+        from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+        self.train_launches = {"K4": kc.launches.count, "K5": kc.fwd_launches.count,
+                               "K6": kc.bwd_launches.count}
+        for ln in buf.getvalue().splitlines():
+            if ln.startswith("epoch"):
+                log(f"[16 train_cli]   {ln}")
+        hist = json.loads((work / "training_history.json").read_text())
+        res = json.loads((work / "test_result.json").read_text())
+        gen = DatasetGenerator(data_dir=data)
+        self.train_split = gen.load_split("train")
+        test = gen.load_split("test")
+        n_steps = len(hist["train_loss"]) * -(-len(self.train_split["y"]) // 256)
+        self.train_steps = n_steps
+
+        # the checkpoint restores with the port's reader
+        state, meta = restore_checkpoint(work)
+        cfg = options_from_jax(json.loads((work / "config.json").read_text())["model"])
+        restored = ADMMNet(cfg)
+        restored.load_state_dict(params_from_jax(state["params"]["params"], cfg))
+        # the committed net-3 checkpoint and the recipe's seed-0 init (what
+        # train_cli starts from) on the same test split, same protocol
+        run = json.loads((NET3 / "config.json").read_text())
+        tcfg = options_from_jax(run["train"])
+
+        def score(model):
+            _, eval_step = build_steps(model, make_optimizer(model, tcfg), "e2e",
+                                       sgdr_schedule(1e-3, 1, 1), assignment="perm",
+                                       spectral_weight=0.5)
+            return evaluate_split(eval_step, test, 256, self.dev, "e2e")
+
+        ref = ADMMNet(options_from_jax(run["model"]))
+        ref.load_state_dict(params_from_jax(restore_checkpoint(NET3)[0]["params"]["params"],
+                                            ref.cfg))
+        ref_res = score(ref.to(self.dev))
+        init_res = score(init_model(ADMMNet, cfg, 0, self.dev))
+        gap = init_res["test_loss"] - ref_res["test_loss"]
+        closed = (init_res["test_loss"] - res["test_loss"]) / gap if gap > 0 else float("nan")
+        fell = hist["val_loss"][-1] < hist["val_loss"][0]
+        log(f"[16 generate_dataset] 10000 fixed-SNR-20 scenes, seed 13, on the card: "
+            f"{t_gen:.1f} s")
+        log(f"[16 train_cli] net-3 recipe, {len(hist['train_loss'])} epochs, {n_steps} steps "
+            f"of 256 on the card: {t_train:.1f} s; val loss {hist['val_loss'][0]:.6f} -> "
+            f"{hist['val_loss'][-1]:.6f} (must fall: {fell}); best epoch {meta['epoch'] + 1}, "
+            f"checkpoint restored with the port's reader")
+        log(f"[16 train_cli] test ({len(test['y'])} scenes): matched F1 "
+            f"{res['matched_f1']:.4f}, matched tau/f RMSE {res['matched_tau_rmse']:.5f} / "
+            f"{res['matched_f_rmse']:.5f}; committed runs/train_net3_r05 on the same split: "
+            f"matched F1 {ref_res['matched_f1']:.4f} (need >= it - {TRAIN_F1_BAND}); the JAX "
+            f"run recorded {NET3_RECORDED_TEST_F1} on its own split")
+        log(f"[16 train_cli] test loss: trained {res['test_loss']:.6f}, seed-0 init "
+            f"{init_res['test_loss']:.6f} (matched F1 {init_res['matched_f1']:.4f}), committed "
+            f"{ref_res['test_loss']:.6f}; share of the init-to-committed gap closed {closed:.4f} "
+            f"(need >= {TRAIN_LOSS_GAP_CLOSED})")
+        check(all(np.isfinite(hist["train_loss"])) and fell, "training: val loss did not fall")
+        check(res["matched_f1"] >= ref_res["matched_f1"] - TRAIN_F1_BAND,
+              "training: matched test F1 below the committed checkpoint's")
+        check(closed >= TRAIN_LOSS_GAP_CLOSED,
+              "training: test loss closed too little of the gap from init to the committed net")
+
+    # 17 ------------------------------------------------------------------
+    def training_timings(self):
+        from admmnet_tpu_torch.core.convert import options_from_jax
+        from admmnet_tpu_torch.kernels import cheb_filter as kc
+        from admmnet_tpu_torch.models import ADMMNet
+        from admmnet_tpu_torch.train.schedules import sgdr_schedule
+        from admmnet_tpu_torch.train.trainer import (
+            batch_to_device,
+            build_steps,
+            init_model,
+            make_optimizer,
+        )
+
+        tag = f"[{self.card}]"
+        D = CHEB_DEGREE
+        rng = np.random.default_rng(5)
+        for B in B_TIME_TRAIN:
+            M, c, Y = cheb_inputs(rng, B, self.dev)
+            _, _, carries = kc.cheb_fwd_planes(M, c, D)
+            cropped = [x[:, :101, :101].contiguous() for x in carries]
+            k5 = cuda_ms(lambda: kc.cheb_fwd_planes(M, c, D), reps=3)
+            k5p = cuda_ms(lambda: kc.cheb_filter_matrices_plain_with_residuals(M, c, D), reps=3)
+            k6 = cuda_ms(lambda: kc.cheb_bwd(M, c, carries, Y, D), reps=3)
+            k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D), reps=3)
+            b5, by5 = bound(cheb_flops(B), cheb_bytes(B) + B * 4 * 101 * 101 * 4)
+            b6, by6 = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
+            log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.2f} ms, plain {k5p:.2f} ms; "
+                f"bound {b5:.2f} ms ({by5}) {tag}")
+            log(f"[17 time K6] B={B}: kernel {k6:.2f} ms ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
+                f"TFLOP/s useful), plain {k6p:.2f} ms; bound {b6:.2f} ms ({by6}) {tag}")
+            if B == 256:
+                self.kernels["K5"].update(ms=k5, plain_ms=k5p, bound_ms=b5, bound_by=by5,
+                                          library_ms=None)
+                self.kernels["K6"].update(ms=k6, plain_ms=k6p, bound_ms=b6, bound_by=by6,
+                                          library_ms=None)
+            del M, c, Y, carries, cropped
+
+        run = json.loads((NET3 / "config.json").read_text())
+        tcfg = options_from_jax(run["train"])
+        model = init_model(ADMMNet, options_from_jax(run["model"]), 1, self.dev)
+        opt = make_optimizer(model, tcfg)
+        step, _ = build_steps(model, opt, "e2e", sgdr_schedule(1e-3, 27, 15),
+                              tcfg.grad_clip, tcfg.assignment, tcfg.spectral_weight)
+        batch = batch_to_device({k: v[:256] for k, v in self.train_split.items()}, self.dev)
+        sms = cuda_ms(lambda: step(batch, 0), reps=5)
+        log(f"[17 time train step] net-3 recipe, B=256: {sms:.1f} ms per step "
+            f"({256 / sms * 1e3:.0f} scenes/s) {tag}")
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch, 0)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [(e.key, e.device_time_total) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(t for _, t in kernels)
+        if busy == 0:
+            log("[17 profile train step] torch.profiler shows no device time")
+            return
+        kernels.sort(key=lambda kt: -kt[1])
+        top = "; ".join(f"{name[:40]} {t / busy:.1%}" for name, t in kernels[:6])
+        log(f"[17 profile train step] B=256: device busy {busy / 1e3:.1f} ms of a "
+            f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}), {len(kernels)} kernel "
+            f"names; by device time: {top} {tag}")
+
 
 def main() -> int:
     from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, polar
@@ -635,13 +973,31 @@ def main() -> int:
     k4_net = cheb_filter.launches.count
     sm.learned_clis()
     counts["K4"] = cheb_filter.launches.count
+    glayers = sm.net3_cfg.num_layers - 1  # the last depth runs no GLayer
     log(f"[11 launches] learned path (phase 11): K4 cheb_filter {counts['K4']} "
-        f"(must be > 0), {k4_net} in the 512-scene forward (expect "
-        f"{sm.net3_cfg.num_layers}, one per GLayer)")
-    check(counts["K4"] > 0 and k4_net == sm.net3_cfg.num_layers,
+        f"(must be > 0), {k4_net} in the 512-scene forward (expect {glayers}, one per "
+        f"GLayer that runs)")
+    check(counts["K4"] > 0 and k4_net == glayers,
           "K4 did not launch once per GLayer on the learned path")
     sm.learned_timings()
     sm.profile()
+    sm.k56_vs_plain()
+    sm.golden_train_steps()
+    # the training path's launches are counted over generate_dataset + train_cli
+    for counter in (cheb_filter.launches, cheb_filter.fwd_launches, cheb_filter.bwd_launches):
+        counter.reset()
+    sm.training_run()
+    # K5 and K6 run once per GLayer and step: net-3 runs the GLayer of its
+    # first two depths (the last depth's G would feed nothing returned)
+    tl, n = sm.train_launches, sm.train_steps
+    log(f"[16 launches] training path (generate_dataset + train_cli): K5 {tl['K5']}, K6 "
+        f"{tl['K6']} (each must be {glayers} x {n} steps = {glayers * n}), K4 {tl['K4']} in "
+        f"the eval steps (must be > 0)")
+    check(tl["K5"] == glayers * n and tl["K6"] == glayers * n and tl["K4"] > 0,
+          "K5/K6 did not launch once per GLayer per training step")
+    counts.update(K5=tl["K5"], K6=tl["K6"])
+    sm.training_timings()
+    sm.tmp.cleanup()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -651,6 +1007,10 @@ def main() -> int:
                "admmnet_tpu/kernels/fused_admm_fast.py:575"),
         "K4": ("cheb_filter", "admmnet_tpu_torch/kernels/csrc/cheb_filter.cu",
                "admmnet_tpu/kernels/cheb_filter.py:145"),
+        "K5": ("cheb_filter_train_fwd", "admmnet_tpu_torch/kernels/csrc/cheb_filter.cu",
+               "admmnet_tpu/kernels/cheb_filter.py:343"),
+        "K6": ("cheb_bwd", "admmnet_tpu_torch/kernels/csrc/cheb_bwd.cu",
+               "admmnet_tpu/kernels/cheb_filter.py:379"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

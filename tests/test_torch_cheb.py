@@ -127,3 +127,112 @@ def test_plain_version_is_differentiable():
     c = torch.full((2, 6), 0.2, requires_grad=True)
     kc.cheb_filter_matrices(M, c, 6).real.sum().backward()
     assert torch.isfinite(torch.view_as_real(M.grad)).all() and torch.isfinite(c.grad).all()
+
+
+# ---- training: K5's and K6's plain versions and the autograd wiring ----------
+
+
+def _herm_t(X):
+    return 0.5 * (X + torch.conj(X.transpose(-1, -2)))
+
+
+@pytest.mark.parametrize("three_pass", [False, True])
+def test_plain_fwd_residuals_and_bwd_match_pallas(three_pass):
+    """The training forward's carries and the reversible backward vs the JAX
+    package's ``_cheb_fwd_with_residuals`` / ``_cheb_bwd`` (interpret mode):
+    the port is fed the conjugate cotangent (torch's convention) and its
+    Mbar is the conjugate of JAX's; cbar is real and equal as is.  The JAX
+    backward also adds the product with the rebuilt b_degree (~0), which the
+    port leaves out; with three_pass both take split-bf16 products whose
+    operands can round to bf16 differently."""
+    from admmnet_tpu.kernels.cheb_filter import _cheb_bwd, _cheb_fwd_with_residuals
+
+    B, m, D = 3, 12, 10
+    M = _hermitian(B, m, 11)
+    rng = np.random.default_rng(12)
+    c = (rng.normal(size=(B, D)) * 0.3).astype(np.float32)
+    g = (rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))).astype(np.complex64)
+    out_j, res_j = _cheb_fwd_with_residuals(jnp.asarray(M), jnp.asarray(c), D, kblk=3,
+                                            interpret=True)
+    out_t, res_t = kc.cheb_filter_matrices_plain_with_residuals(
+        torch.from_numpy(M), torch.from_numpy(c), D)
+    assert _rel(out_t.numpy(), out_j) < TOL
+    for rj, rt in zip(res_j, res_t):
+        assert _rel(rt.numpy(), np.asarray(rj)[:B, :m, :m]) < TOL
+    Mbar_j, cbar_j = _cheb_bwd(jnp.asarray(M), jnp.asarray(c), res_j, jnp.asarray(g), D,
+                               kblk=3, interpret=True, three_pass=three_pass)
+    Abar, cbar = kc.cheb_bwd_plain(torch.from_numpy(M), torch.from_numpy(c), res_t,
+                                   torch.from_numpy(np.conj(g)), D, three_pass)
+    Mbar = kc.normalization_backward(torch.from_numpy(M), Abar)
+    tol = 3e-4 if three_pass else TOL
+    assert _rel(Mbar.numpy(), np.conj(np.asarray(Mbar_j))) < tol
+    assert _rel(cbar.numpy(), cbar_j) < tol
+
+
+def test_cheb_filter_fn_matches_autograd_of_plain_forward():
+    """Gradients through ``cheb_filter_matrices`` (the reversible backward)
+    vs torch autograd through the plain forward: equal on the Hermitian
+    part of Mbar (the kernel symmetrizes the cotangent, plain autograd runs
+    the adjoint of every re-projection) and on cbar; measured ~2e-7."""
+    B, m, D = 3, 12, 10
+    M = torch.from_numpy(_hermitian(B, m, 13))
+    rng = np.random.default_rng(14)
+    c = torch.from_numpy((rng.normal(size=(B, D)) * 0.3).astype(np.float32))
+    W = torch.from_numpy((rng.normal(size=(B, m, m))
+                          + 1j * rng.normal(size=(B, m, m))).astype(np.complex64))
+    grads = []
+    for fn in (kc.cheb_filter_matrices, kc.cheb_filter_matrices_plain):
+        Mg, cg = M.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        (fn(Mg, cg, D) * W.conj()).real.sum().backward()
+        grads.append((_herm_t(Mg.grad).numpy(), cg.grad.numpy()))
+    assert _rel(grads[0][0], grads[1][0]) < TOL
+    assert _rel(grads[0][1], grads[1][1]) < TOL
+
+
+def test_cheb_filter_fn_gradcheck_float64():
+    """``ChebFilterFn`` in fp64 on the plain path against finite differences,
+    on Hermitian inputs (X -> herm(X), where the recurrence is the
+    polynomial and the reversible backward is its exact adjoint)."""
+    rng = np.random.default_rng(15)
+    X = torch.from_numpy(rng.normal(size=(2, 6, 6)) + 1j * rng.normal(size=(2, 6, 6)))
+    c = torch.from_numpy(rng.normal(size=(2, 6)) * 0.3)
+    assert torch.autograd.gradcheck(
+        lambda X, c: kc.ChebFilterFn.apply(_herm_t(X), c, 6, False),
+        (X.requires_grad_(True), c.requires_grad_(True)))
+
+
+def test_glayer_parameter_gradients_match_jax():
+    """The chebyshev GLayer with the Clenshaw engine (cheb_impl="pallas"):
+    jax.grad of the JAX layer (off the TPU: fp32 with per-step re-projection
+    through XLA autodiff) vs the port's backward through ``ChebFilterFn``.
+    Real parameters: no conjugation.  The lambda parameter only reaches the
+    output through a stop-gradient: zero in both."""
+    import flax.linen  # noqa: F401  (the JAX layer is a flax module)
+
+    from admmnet_tpu.models.layers import GLayer as JGLayer
+    from admmnet_tpu_torch.core.convert import flax_to_state_dict
+    from admmnet_tpu_torch.models.layers import GLayer as TGLayer
+
+    n, B, D = 15, 4, 12
+    rng = np.random.default_rng(16)
+    phi = (rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))).astype(np.complex64)
+    h = (rng.uniform(0.01, 0.1, size=(B, n))).astype(np.float32)
+    Z = _hermitian(B, n + 1, 17) * np.float32(0.1)
+    W = (rng.normal(size=(B, n + 1, n + 1))
+         + 1j * rng.normal(size=(B, n + 1, n + 1))).astype(np.complex64)
+    jl = JGLayer(dim=n, mode="chebyshev", cheb_degree=D, cheb_impl="pallas")
+    params = jl.init(jax.random.PRNGKey(0), phi, h, Z)
+
+    def loss(p):
+        return jnp.sum(jnp.real(jl.apply(p, phi, h, Z) * jnp.conj(W)))
+
+    gj = flax_to_state_dict(jax.jit(jax.grad(loss))(params)["params"])
+    tl = TGLayer(n, mode="chebyshev", cheb_degree=D, cheb_impl="pallas")
+    tl.load_state_dict(flax_to_state_dict(params["params"]))
+    out = tl(torch.from_numpy(phi), torch.from_numpy(h), torch.from_numpy(Z))
+    (out * torch.from_numpy(W).conj()).real.sum().backward()
+    for name, p in tl.named_parameters():
+        g = np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+        ref = np.asarray(gj[name])
+        scale = max(float(np.max(np.abs(ref))), 1e-30)
+        assert float(np.max(np.abs(g - ref))) <= 1e-4 * scale + 1e-7, name

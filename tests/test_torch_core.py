@@ -73,8 +73,10 @@ def test_options_from_jax_rejects_unknown_fields():
     d["new_knob"] = 1
     with pytest.raises(ValueError, match="new_knob"):
         options_from_jax(d)
+    from admmnet_tpu.parallel.distributed import DistributedInfo  # not ported yet
+
     with pytest.raises(ValueError, match="no port counterpart"):
-        options_from_jax(jcfg.DataConfig())
+        options_from_jax(DistributedInfo(0, 1, 1, 1))
 
 
 def test_schedules_and_deployment_constants_equal():

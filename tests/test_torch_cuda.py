@@ -10,9 +10,10 @@ Tolerances: kernel and plain version compute every product in fp32 with
 sums in another order; through the accurate schedule's amplification that
 stays below 1e-4 relative for one projection, below 1e-3 for 20
 iterations of the fused solve (where a last-bit difference can also flip
-a bisection decision of the H-projection), and below 5e-5 for the 48
+a bisection decision of the H-projection), below 5e-5 for the 48
 dependent steps of a Clenshaw evaluation (measured 5.7e-7 on random
-matrices on an H100).
+matrices on an H100), and below 1e-3 for the reversible backward, which
+rebuilds the forward's states from its last two.
 """
 
 import numpy as np
@@ -84,5 +85,72 @@ def test_cheb_kernel_matches_plain(cuda):
     Gr, Gi = kc.cheb_filter_planes(M, c, 48)
     for X in (Gr, Gi):
         assert bool(torch.all(X[:, 101:, :] == 0)) and bool(torch.all(X[:, :, 101:] == 0))
-    with pytest.raises(NotImplementedError):
-        kc.cheb_filter_matrices(M.requires_grad_(True), c, 48)
+    # a call that needs a gradient runs the training forward K5 instead,
+    # whose output is K4's bit for bit
+    before, before5 = kc.launches.count, kc.fwd_launches.count
+    G5 = kc.cheb_filter_matrices(M.clone().requires_grad_(True), c, 48)
+    assert (kc.launches.count, kc.fwd_launches.count) == (before, before5 + 1)
+    assert torch.equal(G5.detach(), G)
+
+
+def _cheb_inputs(cuda, B=64, m=101, degree=48, seed=0):
+    """Random Hermitian matrices, half of them with a dominant eigenvalue
+    (A's spectral radius near 1, as the GLayer's lifted matrices have),
+    coefficients and a random cotangent."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    M = (X + X.conj().transpose(0, 2, 1)) / 2
+    v = rng.normal(size=(B // 2, m)) + 1j * rng.normal(size=(B // 2, m))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    M[B // 2:] += 300.0 * v[:, :, None] * v.conj()[:, None, :]
+    Y = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    c = rng.normal(size=(B, degree)) * 0.3
+    return (torch.from_numpy(np.ascontiguousarray(M, np.complex64)).to(cuda),
+            torch.from_numpy(c.astype(np.float32)).to(cuda),
+            torch.from_numpy(Y.astype(np.complex64)).to(cuda))
+
+
+@pytest.mark.cuda
+def test_cheb_fwd_kernel_is_k4_with_carries(cuda):
+    """K5: K4's output bit for bit, and the final carries of the plain
+    forward (fp32 sums in another order through 47 steps)."""
+    M, c, _ = _cheb_inputs(cuda)
+    G4r, G4i = kc.cheb_filter_planes(M, c, 48)
+    before = kc.fwd_launches.count
+    Gr, Gi, carries = kc.cheb_fwd_planes(M, c, 48)
+    assert kc.fwd_launches.count == before + 1
+    assert torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
+    _, plain = kc.cheb_filter_matrices_plain_with_residuals(M, c, 48)
+    for k, p in zip(carries, plain):
+        assert bool(torch.all(k[:, 101:, :] == 0)) and bool(torch.all(k[:, :, 101:] == 0))
+        assert _rel(k[:, :101, :101], p) < 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("three_pass", [False, True])
+def test_cheb_bwd_kernel_matches_plain(cuda, three_pass):
+    """K6 vs ``cheb_bwd_plain`` on the same inputs (K5's carries)."""
+    M, c, Y = _cheb_inputs(cuda)
+    _, _, carries = kc.cheb_fwd_planes(M, c, 48)
+    before = kc.bwd_launches.count
+    Abar, cbar = kc.cheb_bwd(M, c, carries, Y, 48, three_pass)
+    assert kc.bwd_launches.count == before + 1
+    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :101, :101] for x in carries], Y, 48, three_pass)
+    assert _rel(Abar, Ap) < 1e-3
+    assert _rel(cbar, cp) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cheb_filter_fn_backward_on_cuda(cuda):
+    """Gradients through ``cheb_filter_matrices`` on the card (K5 + K6) vs
+    torch autograd through the plain forward, Hermitian parts (the kernel
+    symmetrizes the cotangent, plain autograd does not)."""
+    M, c, W = _cheb_inputs(cuda, B=16)
+    grads = []
+    for fn in (kc.cheb_filter_matrices, kc.cheb_filter_matrices_plain):
+        Mg, cg = M.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        (fn(Mg, cg, 48) * W.conj()).real.sum().backward()
+        herm = 0.5 * (Mg.grad + Mg.grad.conj().transpose(-1, -2))
+        grads.append((herm, cg.grad))
+    assert _rel(grads[0][0], grads[1][0]) < 1e-3
+    assert _rel(grads[0][1], grads[1][1]) < 1e-3

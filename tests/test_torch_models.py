@@ -165,6 +165,7 @@ def _check_layer(jmod, tmod, args):
     params = _perturbed(jmod.init(jax.random.PRNGKey(0), *args)["params"])
     ref = jmod.apply({"params": params}, *args)
     tmod.load_state_dict(flax_to_state_dict(params))
+    tmod.eval()  # flax's apply is deterministic: no dropout
     with torch.no_grad():
         out = tmod(*[torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args])
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -250,7 +251,7 @@ def test_net_matches_jax(run, B):
     model = (ADMMNet if e2e else PhiEstADMMNet)(cfg)
     model.load_state_dict(params_from_jax(tree, cfg))
     with torch.no_grad():
-        out = model(*map(torch.from_numpy, args))
+        out = model.eval()(*map(torch.from_numpy, args))
     refs, outs = (ref, out) if e2e else ((ref,), (out,))
     assert _rel(outs[-1].numpy(), refs[-1]) < TOL  # phi
     for r, o in zip(refs[:-1], outs[:-1]):  # tau, f, conf in head order
