@@ -33,14 +33,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # Mr, Mi, Pr, Pi, scratch, B, P, coeffs, nsteps, hi_steps, stream
-    "polar_psd_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
+    # Mr, Mi, Pr, Pi, scratch, B, P, coeffs, nsteps, hi_steps, bf16_store, stream
+    "polar_psd_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
     # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,
     # lam_inv_sq, coeffs, nsteps, hi_steps, outer_iters, inner_iters,
-    # final_hi, warm_root, all_hi, three_pass, stream
+    # final_hi, warm_root, all_hi, three_pass, fold_diag, lists, stream
     "fused_admm_fast_launch": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
-        _I, _I, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,
+    # lam_inv_sq, coeffs, nsteps, outer_iters, inner_iters, stream
+    "fused_admm_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _P,
     ),
     # Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i (carries: all null, or all
     # written), scratch, B, P, m, degree, stream
@@ -56,6 +61,7 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's build, None if cached
 build_logs = {}  # source name -> nvcc's report (registers, shared memory, spills)
+compile_seconds = {}  # source name -> wall time of its nvcc
 
 
 def _sources():
@@ -83,15 +89,17 @@ def library_path() -> Path:
 
 
 def _run(cmd, what):
+    """(output, wall seconds) of a command that must succeed."""
+    t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{what} failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    return proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr, time.time() - t0
 
 
 def build() -> Path:
     """Compile the sources unless the library for their hash exists."""
-    global build_seconds, build_logs
+    global build_seconds, build_logs, compile_seconds
     out = library_path()
     if out.exists():
         return out
@@ -107,11 +115,12 @@ def build() -> Path:
                                   f"nvcc {src.name}")
             for src, obj in zip(sources, objs)
         }
-        logs = {name: fut.result() for name, fut in futures.items()}
+        results = {name: fut.result() for name, fut in futures.items()}
     tmp = out.with_name(f"{tag}.tmp")
     _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], "nvcc link")
     build_seconds = time.time() - t0
-    build_logs = logs
+    build_logs = {name: log for name, (log, _) in results.items()}
+    compile_seconds = {name: secs for name, (_, secs) in results.items()}
     os.replace(tmp, out)
     for obj in objs:
         obj.unlink()

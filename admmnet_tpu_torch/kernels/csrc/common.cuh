@@ -19,7 +19,11 @@
 // Precision: every product is IEEE fp32 (SIMT FMA), except that a "split"
 // product reproduces the TPU kernel's 3-pass split-bf16 product literally:
 // each operand x becomes xh = bf16_rn(x) and xl = x - xh (fp32), and
-// x*y is accumulated as xh*yh + xh*yl + xl*yh.
+// x*y is accumulated as xh*yh + xh*yl + xl*yh.  With bf16 storage (the BF
+// template flag, polar.cu's bf16_store) the planes hold bf16 values: each
+// product accumulates in fp32 and is rounded once, and each elementwise
+// result (sums, differences, the polynomial's terms, the re-projection) is
+// rounded to bf16 as it is formed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,14 +90,15 @@ __device__ float block_sum(Tiles<P>& sm, float v) {
 //   SUMS:  acc0 += (L0 + L1)(R0 + R1)
 enum Mode { PAIRS, ONE, SUMS };
 
-template <int P, int MODE>
+template <int P, int MODE, bool BF>
 __device__ __forceinline__ void load_tiles(Tiles<P>& sm, const float* L0, const float* L1,
                                            const float* R0, const float* R1, int k0) {
   for (int e = threadIdx.x; e < KT * P; e += NT) {
     const int row = e / KT, kk = e % KT;
     const int li = row * P + k0 + kk;
     if (MODE == SUMS) {
-      sm.l0[kk][row] = L0[li] + L1[li];
+      const float v = L0[li] + L1[li];
+      sm.l0[kk][row] = BF ? bf16_round(v) : v;
     } else {
       sm.l0[kk][row] = L0[li];
       if (MODE == PAIRS) sm.l1[kk][row] = L1[li];
@@ -103,7 +108,8 @@ __device__ __forceinline__ void load_tiles(Tiles<P>& sm, const float* L0, const 
     const int kk = e / P, col = e % P;
     const int ri = (k0 + kk) * P + col;
     if (MODE == SUMS) {
-      sm.r0[kk][col] = R0[ri] + R1[ri];
+      const float v = R0[ri] + R1[ri];
+      sm.r0[kk][col] = BF ? bf16_round(v) : v;
     } else {
       sm.r0[kk][col] = R0[ri];
       if (MODE == PAIRS) sm.r1[kk][col] = R1[ri];
@@ -143,8 +149,9 @@ __device__ __forceinline__ void outer_acc(float (&acc)[MT][MT], const float (&x)
 
 // One tiled pass over k of the product(s) named by MODE; results stay in
 // the accumulators.  Ends with __syncthreads(), after which every read of
-// L*/R* is complete and those planes may be overwritten.
-template <int P, int MODE, bool SPLIT>
+// L*/R* is complete and those planes may be overwritten.  BF rounds the
+// operand sums of SUMS to bf16.
+template <int P, int MODE, bool SPLIT, bool BF = false>
 __device__ __forceinline__ void gemm_pass(Tiles<P>& sm, const float* L0, const float* L1,
                                           const float* R0, const float* R1,
                                           float (&acc0)[P / TS][P / TS],
@@ -159,7 +166,7 @@ __device__ __forceinline__ void gemm_pass(Tiles<P>& sm, const float* L0, const f
       acc1[i][j] = 0.f;
     }
   for (int k0 = 0; k0 < P; k0 += KT) {
-    load_tiles<P, MODE>(sm, L0, L1, R0, R1, k0);
+    load_tiles<P, MODE, BF>(sm, L0, L1, R0, R1, k0);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < KT; ++kk) {
@@ -185,39 +192,57 @@ __device__ __forceinline__ void gemm_pass(Tiles<P>& sm, const float* L0, const f
 //   X2r = Xr Xr - Xi Xi,  X2i = XrXi - (XrXi)^T.
 // With poly, writes Y = a I + b X2in + c X2 instead, where X2in = (Xr, Xi)
 // are this call's inputs (the previous square) -- the schedule's polynomial.
-template <int P, bool SPLIT>
+// BF: bf16 storage (a, b, c already rounded to bf16 by the caller).
+template <int P, bool SPLIT, bool BF = false>
 __device__ void herm_square(Tiles<P>& sm, const float* Xr, const float* Xi, float* Or,
                             float* Oi, float* T, bool poly, float a, float b, float c) {
   constexpr int MT = P / TS;
   const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
   float acc0[MT][MT], acc1[MT][MT];
-  gemm_pass<P, PAIRS, SPLIT>(sm, Xr, Xi, Xr, Xi, acc0, acc1);
+  gemm_pass<P, PAIRS, SPLIT, BF>(sm, Xr, Xi, Xr, Xi, acc0, acc1);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       const int r = ty + TS * i, cc = tx + TS * j;
-      const float x2r = acc0[i][j] - acc1[i][j];
-      if (poly) {
+      if constexpr (BF) {
         const float eye = r == cc ? a : 0.f;
-        Or[r * P + cc] = (eye + b * Xr[r * P + cc]) + c * x2r;
+        const float x2r = bf16_round(bf16_round(acc0[i][j]) - bf16_round(acc1[i][j]));
+        Or[r * P + cc] = poly ? bf16_round(bf16_round(eye + bf16_round(b * Xr[r * P + cc])) +
+                                           bf16_round(c * x2r))
+                              : x2r;
       } else {
-        Or[r * P + cc] = x2r;
+        const float x2r = acc0[i][j] - acc1[i][j];
+        if (poly) {
+          const float eye = r == cc ? a : 0.f;
+          Or[r * P + cc] = (eye + b * Xr[r * P + cc]) + c * x2r;
+        } else {
+          Or[r * P + cc] = x2r;
+        }
       }
     }
-  gemm_pass<P, ONE, SPLIT>(sm, Xr, Xr, Xi, Xi, acc0, acc1);
+  gemm_pass<P, ONE, SPLIT, BF>(sm, Xr, Xr, Xi, Xi, acc0, acc1);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < MT; ++j) T[(ty + TS * i) * P + tx + TS * j] = acc0[i][j];
+    for (int j = 0; j < MT; ++j) {
+      if constexpr (BF) acc0[i][j] = bf16_round(acc0[i][j]);
+      T[(ty + TS * i) * P + tx + TS * j] = acc0[i][j];
+    }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       const int r = ty + TS * i, cc = tx + TS * j;
-      const float x2i = acc0[i][j] - T[cc * P + r];
-      Oi[r * P + cc] = poly ? b * Xi[r * P + cc] + c * x2i : x2i;
+      if constexpr (BF) {
+        const float x2i = bf16_round(acc0[i][j] - T[cc * P + r]);
+        Oi[r * P + cc] =
+            poly ? bf16_round(bf16_round(b * Xi[r * P + cc]) + bf16_round(c * x2i)) : x2i;
+      } else {
+        const float x2i = acc0[i][j] - T[cc * P + r];
+        Oi[r * P + cc] = poly ? b * Xi[r * P + cc] + c * x2i : x2i;
+      }
     }
   __syncthreads();
 }
@@ -226,36 +251,45 @@ __device__ void herm_square(Tiles<P>& sm, const float* Xr, const float* Xi, floa
 //   t1 = Lr Rr, t2 = Li Ri, t3 = (Lr + Li)(Rr + Ri),
 //   Cr = t1 - t2, Ci = t3 - t1 - t2, left in the accumulators (cr, ci).
 // T receives t3.  Ends synchronized; L and R may then be overwritten.
-template <int P, bool SPLIT>
+// BF: bf16 storage (each product, sum and difference rounded to bf16).
+template <int P, bool SPLIT, bool BF = false>
 __device__ __forceinline__ void karatsuba(Tiles<P>& sm, const float* Lr, const float* Li,
                                           const float* Rr, const float* Ri, float* T,
                                           float (&cr)[P / TS][P / TS],
                                           float (&ci)[P / TS][P / TS]) {
   constexpr int MT = P / TS;
   const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
-  gemm_pass<P, SUMS, SPLIT>(sm, Lr, Li, Rr, Ri, cr, ci);
+  gemm_pass<P, SUMS, SPLIT, BF>(sm, Lr, Li, Rr, Ri, cr, ci);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < MT; ++j) T[(ty + TS * i) * P + tx + TS * j] = cr[i][j];
+    for (int j = 0; j < MT; ++j)
+      T[(ty + TS * i) * P + tx + TS * j] = BF ? bf16_round(cr[i][j]) : cr[i][j];
   // each thread reads back only the T entries it wrote, so no barrier is
   // needed between this write and the epilogue below
-  gemm_pass<P, PAIRS, SPLIT>(sm, Lr, Li, Rr, Ri, cr, ci);
+  gemm_pass<P, PAIRS, SPLIT, BF>(sm, Lr, Li, Rr, Ri, cr, ci);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
-      const float t1 = cr[i][j], t2 = ci[i][j];
       const float t3 = T[(ty + TS * i) * P + tx + TS * j];
-      cr[i][j] = t1 - t2;
-      ci[i][j] = t3 - t1 - t2;
+      if constexpr (BF) {
+        const float t1 = bf16_round(cr[i][j]), t2 = bf16_round(ci[i][j]);
+        cr[i][j] = bf16_round(t1 - t2);
+        ci[i][j] = bf16_round(bf16_round(t3 - t1) - t2);
+      } else {
+        const float t1 = cr[i][j], t2 = ci[i][j];
+        cr[i][j] = t1 - t2;
+        ci[i][j] = t3 - t1 - t2;
+      }
     }
 }
 
 // Replace the accumulators (cr, ci) by their Hermitian part:
 //   cr <- (cr + cr^T) / 2,  ci <- (ci - ci^T) / 2,
-// exchanging transposes through the planes Er, Ei (overwritten).
-template <int P>
+// exchanging transposes through the planes Er, Ei (overwritten).  BF rounds
+// the sums and the halves to bf16.
+template <int P, bool BF = false>
 __device__ __forceinline__ void hermitian_part(float* Er, float* Ei, float (&cr)[P / TS][P / TS],
                                                float (&ci)[P / TS][P / TS]) {
   constexpr int MT = P / TS;
@@ -274,8 +308,13 @@ __device__ __forceinline__ void hermitian_part(float* Er, float* Ei, float (&cr)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       const int tidx = (tx + TS * j) * P + ty + TS * i;
-      cr[i][j] = 0.5f * (cr[i][j] + Er[tidx]);
-      ci[i][j] = 0.5f * (ci[i][j] - Ei[tidx]);
+      if constexpr (BF) {
+        cr[i][j] = bf16_round(0.5f * bf16_round(cr[i][j] + Er[tidx]));
+        ci[i][j] = bf16_round(0.5f * bf16_round(ci[i][j] - Ei[tidx]));
+      } else {
+        cr[i][j] = 0.5f * (cr[i][j] + Er[tidx]);
+        ci[i][j] = 0.5f * (ci[i][j] - Ei[tidx]);
+      }
     }
   __syncthreads();
 }
@@ -289,7 +328,9 @@ struct SignPlanes {
 // Step s is "hi" iff all_hi or s >= nsteps - hi_steps; a hi step's products
 // are split products iff three_pass; the iterate is re-projected onto the
 // Hermitian subspace after a step iff it is not hi or three_pass.
-template <int P>
+// BF16_STORE: the low steps run with bf16 storage on the bf16-valued
+// iterate and coefficients; a hi step reads the iterate as fp32.
+template <int P, bool BF16_STORE = false>
 __device__ void sign_schedule(Tiles<P>& sm, const SignPlanes& w, const Schedule& sched,
                               int hi_steps, bool all_hi, bool three_pass) {
   constexpr int MT = P / TS;
@@ -300,16 +341,29 @@ __device__ void sign_schedule(Tiles<P>& sm, const SignPlanes& w, const Schedule&
     const bool reproject = !hi || three_pass;
     const float a = sched.a[s], b = sched.b[s], c = sched.c[s];
     float cr[MT][MT], ci[MT][MT];
-    if (split) {
-      herm_square<P, true>(sm, w.Xr, w.Xi, w.X2r, w.X2i, w.T, false, 0.f, 0.f, 0.f);
-      herm_square<P, true>(sm, w.X2r, w.X2i, w.Yr, w.Yi, w.T, true, a, b, c);
-      karatsuba<P, true>(sm, w.Xr, w.Xi, w.Yr, w.Yi, w.T, cr, ci);
-    } else {
-      herm_square<P, false>(sm, w.Xr, w.Xi, w.X2r, w.X2i, w.T, false, 0.f, 0.f, 0.f);
-      herm_square<P, false>(sm, w.X2r, w.X2i, w.Yr, w.Yi, w.T, true, a, b, c);
-      karatsuba<P, false>(sm, w.Xr, w.Xi, w.Yr, w.Yi, w.T, cr, ci);
+    bool done = false;
+    if constexpr (BF16_STORE) {
+      if (!hi) {
+        const float ab = bf16_round(a), bb = bf16_round(b), cb = bf16_round(c);
+        herm_square<P, false, true>(sm, w.Xr, w.Xi, w.X2r, w.X2i, w.T, false, 0.f, 0.f, 0.f);
+        herm_square<P, false, true>(sm, w.X2r, w.X2i, w.Yr, w.Yi, w.T, true, ab, bb, cb);
+        karatsuba<P, false, true>(sm, w.Xr, w.Xi, w.Yr, w.Yi, w.T, cr, ci);
+        hermitian_part<P, true>(w.Xr, w.Xi, cr, ci);
+        done = true;
+      }
     }
-    if (reproject) hermitian_part<P>(w.Xr, w.Xi, cr, ci);
+    if (!done) {
+      if (split) {
+        herm_square<P, true>(sm, w.Xr, w.Xi, w.X2r, w.X2i, w.T, false, 0.f, 0.f, 0.f);
+        herm_square<P, true>(sm, w.X2r, w.X2i, w.Yr, w.Yi, w.T, true, a, b, c);
+        karatsuba<P, true>(sm, w.Xr, w.Xi, w.Yr, w.Yi, w.T, cr, ci);
+      } else {
+        herm_square<P, false>(sm, w.Xr, w.Xi, w.X2r, w.X2i, w.T, false, 0.f, 0.f, 0.f);
+        herm_square<P, false>(sm, w.X2r, w.X2i, w.Yr, w.Yi, w.T, true, a, b, c);
+        karatsuba<P, false>(sm, w.Xr, w.Xi, w.Yr, w.Yi, w.T, cr, ci);
+      }
+      if (reproject) hermitian_part<P>(w.Xr, w.Xi, cr, ci);
+    }
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -322,16 +376,17 @@ __device__ void sign_schedule(Tiles<P>& sm, const SignPlanes& w, const Schedule&
   }
 }
 
-// X <- M / max(||M||_F, 1e-30), with M given as planes (Mr, Mi).
-template <int P>
+// X <- M / max(||M||_F, 1e-30), with M given as planes (Mr, Mi); BF rounds
+// X to bf16.
+template <int P, bool BF = false>
 __device__ void scale_by_frobenius(Tiles<P>& sm, const float* Mr, const float* Mi, float* Xr,
                                    float* Xi) {
   float s = 0.f;
   for (int e = threadIdx.x; e < P * P; e += NT) s += Mr[e] * Mr[e] + Mi[e] * Mi[e];
   const float inv = 1.f / fmaxf(sqrtf(block_sum<P>(sm, s)), 1e-30f);
   for (int e = threadIdx.x; e < P * P; e += NT) {
-    Xr[e] = Mr[e] * inv;
-    Xi[e] = Mi[e] * inv;
+    Xr[e] = BF ? bf16_round(Mr[e] * inv) : Mr[e] * inv;
+    Xi[e] = BF ? bf16_round(Mi[e] * inv) : Mi[e] * inv;
   }
   __syncthreads();
 }

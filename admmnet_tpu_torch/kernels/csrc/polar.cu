@@ -18,13 +18,19 @@
 // real products (X2i = XrXi - (XrXi)^T), a general product of commuting
 // Hermitians 3 (Karatsuba).  One thread block per matrix; tensor cores
 // (wgmma) and a bf16 / TF32 precision remap are later work.
+//
+// bf16_store (fast mode, the JAX kernel's bf16_store=True): the iterate of
+// the low steps is kept bf16-valued and every product output and
+// elementwise result of those steps is rounded to bf16 (common.cuh's BF
+// flag); the products still accumulate in IEEE fp32.  The first hi step
+// and the closing products read the iterate as fp32.
 #include "common.cuh"
 
 namespace admmk {
 
 constexpr int POLAR_PLANES = 7;  // Xr, Xi, X2r, X2i, Yr, Yi, T
 
-template <int P>
+template <int P, bool BF16_STORE>
 __global__ void __launch_bounds__(NT) polar_psd_kernel(const float* __restrict__ Mr_all,
                                                         const float* __restrict__ Mi_all,
                                                         float* Pr_all, float* Pi_all,
@@ -47,8 +53,8 @@ __global__ void __launch_bounds__(NT) polar_psd_kernel(const float* __restrict__
   w.Yi = base + 5 * P * P;
   w.T = base + 6 * P * P;
 
-  scale_by_frobenius<P>(sm, Mr, Mi, w.Xr, w.Xi);
-  sign_schedule<P>(sm, w, sched, hi_steps, false, false);
+  scale_by_frobenius<P, BF16_STORE>(sm, Mr, Mi, w.Xr, w.Xi);
+  sign_schedule<P, BF16_STORE>(sm, w, sched, hi_steps, false, false);
 
   float ar[MT][MT], ai[MT][MT];
   abs_product<P>(sm, w, Mr, Mi, false, ar, ai);
@@ -77,10 +83,11 @@ __global__ void __launch_bounds__(NT) polar_psd_kernel(const float* __restrict__
 
 // C entry point.  Mr, Mi: (B, P, P) float planes, zero-padded; Pr, Pi: the
 // same shape, written; scratch: B * 7 * P * P floats.  coeffs: host array of
-// nsteps (a, b, c) triples.  Returns the launch's cudaError_t.
+// nsteps (a, b, c) triples; bf16_store: bf16 iterate storage of the low
+// steps.  Returns the launch's cudaError_t.
 extern "C" int polar_psd_launch(const float* Mr, const float* Mi, float* Pr, float* Pi,
                                 float* scratch, int B, int P, const float* coeffs, int nsteps,
-                                int hi_steps, void* stream) {
+                                int hi_steps, int bf16_store, void* stream) {
   using namespace admmk;
   if (nsteps < 0 || nsteps > MAX_STEPS || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Schedule sched{};
@@ -91,10 +98,14 @@ extern "C" int polar_psd_launch(const float* Mr, const float* Mi, float* Pr, flo
   }
   sched.n = nsteps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P == 112)
-    polar_psd_kernel<112><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
+  if (P == 112 && bf16_store)
+    polar_psd_kernel<112, true><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
+  else if (P == 112)
+    polar_psd_kernel<112, false><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
+  else if (P == 128 && bf16_store)
+    polar_psd_kernel<128, true><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
   else if (P == 128)
-    polar_psd_kernel<128><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
+    polar_psd_kernel<128, false><<<B, NT, 0, st>>>(Mr, Mi, Pr, Pi, scratch, sched, hi_steps);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -11,7 +11,10 @@ Modes, as in the JAX package:
   "hi" (no Hermitian re-projection).
 - ``mode="fast"``: the 6-step ``POLAR_BF16_SCHEDULE``, re-projected onto the
   Hermitian subspace after every step that is not "hi"; ``hi_steps=1``
-  appends ``POLAR_BF16_POLISH`` as a hi step.
+  appends ``POLAR_BF16_POLISH`` as a hi step.  ``bf16_store=True`` keeps
+  the iterate of the low steps in bf16 and rounds each of their products
+  and elementwise results to bf16, as the JAX kernel's bf16 arithmetic
+  does; the hi steps and the closing products run on the fp32 iterate.
 
 Every product is IEEE fp32 in both the kernel and the plain version (what
 the JAX kernel computes in interpret mode); the closing |M| products
@@ -106,14 +109,54 @@ def frobenius_inv(Mr, Mi):
     return 1.0 / torch.clamp_min(torch.sqrt(s), 1e-30)
 
 
-def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False):
+def _bf16(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+
+
+def bf16_step(Xr, Xi, a, b, c):
+    """One low schedule step with bf16 iterate storage, on bfloat16 planes:
+    each product accumulates in fp32 and is rounded once; each elementwise
+    op (the polynomial's terms and sums, the Karatsuba sums and
+    differences, the Hermitian re-projection) rounds its result, with the
+    coefficients rounded first, as the JAX kernel's bf16 arithmetic does."""
+    def mm_lo(x, y):
+        return (x.to(torch.float32) @ y.to(torch.float32)).to(torch.bfloat16)
+
+    def square(Xr, Xi):
+        XrXi = mm_lo(Xr, Xi)
+        return mm_lo(Xr, Xr) - mm_lo(Xi, Xi), XrXi - _t(XrXi)
+
+    a, b, c = _bf16(a), _bf16(b), _bf16(c)
+    eye = torch.eye(Xr.shape[-1], dtype=torch.bfloat16, device=Xr.device)
+    X2r, X2i = square(Xr, Xi)
+    X4r, X4i = square(X2r, X2i)
+    Yr = a * eye + b * X2r + c * X4r
+    Yi = b * X2i + c * X4i
+    t1 = mm_lo(Xr, Yr)
+    t2 = mm_lo(Xi, Yi)
+    t3 = mm_lo(Xr + Xi, Yr + Yi)
+    Xr = t1 - t2
+    Xi = t3 - t1 - t2
+    return 0.5 * (Xr + _t(Xr)), 0.5 * (Xi - _t(Xi))
+
+
+def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False,
+                  bf16_store=False):
     """Apply the sign schedule to the scaled iterate X.  Step s is "hi" iff
     all_hi or s >= nsteps - hi_steps; hi products are split iff three_pass;
-    the iterate is re-projected after a step iff it is not hi or three_pass."""
+    the iterate is re-projected after a step iff it is not hi or three_pass.
+    ``bf16_store``: the low steps run ``bf16_step`` on the iterate rounded
+    to bf16; it is promoted to fp32 at the first hi step."""
     nsteps = len(schedule)
     eye = torch.eye(Xr.shape[-1], dtype=Xr.dtype, device=Xr.device)
+    if bf16_store:
+        Xr, Xi = Xr.to(torch.bfloat16), Xi.to(torch.bfloat16)
     for s, (a, b, c) in enumerate(schedule):
         hi = all_hi or s >= nsteps - hi_steps
+        if bf16_store and not hi:
+            Xr, Xi = bf16_step(Xr, Xi, a, b, c)
+            continue
+        Xr, Xi = Xr.to(torch.float32), Xi.to(torch.float32)
         split = hi and three_pass
         X2r, X2i = herm_square(Xr, Xi, split)
         X4r, X4i = herm_square(X2r, X2i, split)
@@ -123,7 +166,7 @@ def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False):
         if not hi or three_pass:
             Xr = 0.5 * (Xr + _t(Xr))
             Xi = 0.5 * (Xi - _t(Xi))
-    return Xr, Xi
+    return Xr.to(torch.float32), Xi.to(torch.float32)
 
 
 def abs_product(Xr, Xi, Mr, Mi, split):
@@ -133,13 +176,14 @@ def abs_product(Xr, Xi, Mr, Mi, split):
 
 
 def psd_project_polar_plain(M: torch.Tensor, mode: str = "accurate",
-                            hi_steps=None) -> torch.Tensor:
+                            hi_steps=None, bf16_store: bool = False) -> torch.Tensor:
     """The kernel's computation in torch ops; complex64 (..., m, m) in/out."""
     schedule, hi_steps = schedule_for(mode, hi_steps)
     Mr = M.real.to(torch.float32)
     Mi = M.imag.to(torch.float32)
     inv = frobenius_inv(Mr, Mi)
-    Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps)
+    Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps,
+                           bf16_store=bf16_store and mode == "fast")
     Ar, Ai = abs_product(Xr, Xi, Mr, Mi, False)
     Pr = 0.5 * (Mr + Ar)
     Pi = 0.5 * (Mi + Ai)
@@ -158,15 +202,17 @@ def _check_matrix(M: torch.Tensor) -> int:
 
 
 def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
-                             hi_steps=None) -> torch.Tensor:
+                             hi_steps=None, bf16_store: bool = False) -> torch.Tensor:
     """PSD projection of batched Hermitian complex64 (..., m, m), m <= 128.
 
     A CUDA tensor launches the CUDA kernel (one thread block per matrix); a
     CPU tensor runs ``psd_project_polar_plain``.  Any other device raises.
+    ``bf16_store`` (fast mode only, as in the JAX package) keeps the iterate
+    of the low steps in bf16.
     """
     P = _check_matrix(M)
     if M.device.type == "cpu":
-        return psd_project_polar_plain(M, mode, hi_steps)
+        return psd_project_polar_plain(M, mode, hi_steps, bf16_store)
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     if not M.is_contiguous():
@@ -192,6 +238,7 @@ def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
         err = lib.polar_psd_launch(
             Mr.data_ptr(), Mi.data_ptr(), Pr.data_ptr(), Pi.data_ptr(),
             scratch.data_ptr(), B, P, coeffs.ctypes.data, len(schedule), hi_steps,
+            int(bf16_store and mode == "fast"),
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "polar_psd_launch")

@@ -64,18 +64,6 @@ class ADMMResult(NamedTuple):
     r_dual: torch.Tensor  # (...,) final dual residual
 
 
-def _check_options(opts: ADMMOptions) -> None:
-    if opts.polar_bf16_store:
-        raise NotImplementedError("polar_bf16_store=True is not ported")
-    if opts.g_update == "fused_fast":
-        if opts.fused_layout != "lean":
-            raise NotImplementedError("fused_layout='lists' is not ported")
-        if opts.fused_unroll > 1:
-            raise NotImplementedError("fused_unroll > 1 is not ported")
-    if opts.g_update in ("fused_fast", "fused_exact") and not opts.fused_fold_diag:
-        raise NotImplementedError("fused_fold_diag=False is not ported")
-
-
 def _phi_update_diag(y, b, g, zeta, rho):
     """(D^-1 + rho I)^-1 (y/b + rho g + zeta) elementwise, D = diag(|b|^2)."""
     b_sq = torch.abs(b) ** 2
@@ -111,7 +99,8 @@ def _g_step(M, opts: ADMMOptions):
             )
         if fast:
             return psd_project_polar_kernel(
-                M.contiguous(), mode="fast", hi_steps=opts.polar_fast_hi_steps
+                M.contiguous(), mode="fast", hi_steps=opts.polar_fast_hi_steps,
+                bf16_store=opts.polar_bf16_store,
             )
         return psd_project_polar_kernel(M.contiguous(), mode="accurate")
     if g == "newton_schulz":
@@ -154,7 +143,6 @@ def admm_solve(y, b, sigma, lambda_val: float = 1.0,
     y, b: (..., n) complex observations / demodulated symbols; sigma:
     (...,) noise-level bound; lambda_val: ANM weight.
     """
-    _check_options(opts)
     y = torch.as_tensor(y).to(COMPLEX)
     b = torch.as_tensor(b).to(COMPLEX).to(y.device)
     batch = y.shape[:-1]
@@ -203,16 +191,16 @@ def admm_solve(y, b, sigma, lambda_val: float = 1.0,
 
 def fused_kernel_options(opts: ADMMOptions) -> dict:
     """The fused kernel's knobs for a fused_fast / fused_exact option set,
-    mapped as the JAX dispatch maps them.  The layout, unroll and fold_diag
-    knobs are not passed: ``_check_options`` admits only their ported
-    values (lean, 1, True), which are the kernel wrapper's defaults."""
+    mapped exactly as the JAX dispatch maps them (fused_exact: the lean
+    layout and no unroll knob)."""
     if opts.g_update == "fused_exact":
         sched = {"quintic5": POLAR_QUINTIC5_SCHEDULE,
                  "quintic7": POLAR_QUINTIC_SCHEDULE}[opts.fused_exact_schedule]
         return dict(
             hi_steps=0, outer_iters=opts.fused_exact_proj_iters,
             inner_iters=opts.fused_exact_inner_iters, schedule=sched,
-            final_hi=True, warm_root=opts.fused_exact_warm_root, all_hi=True,
+            final_hi=True, layout="lean", fold_diag=opts.fused_fold_diag,
+            warm_root=opts.fused_exact_warm_root, all_hi=True,
             three_pass=opts.fused_exact_three_pass,
         )
     sched = {"full": POLAR_BF16_SCHEDULE, "sched3": POLAR_BF16_SCHED3,
@@ -220,8 +208,9 @@ def fused_kernel_options(opts: ADMMOptions) -> dict:
     return dict(
         hi_steps=opts.polar_fast_hi_steps, outer_iters=opts.fused_proj_iters,
         inner_iters=opts.fused_inner_iters, schedule=sched,
-        final_hi=opts.fused_final_hi, warm_root=opts.fused_warm_root,
-        all_hi=False, three_pass=False,
+        final_hi=opts.fused_final_hi, layout=opts.fused_layout,
+        loop_unroll=opts.fused_unroll, fold_diag=opts.fused_fold_diag,
+        warm_root=opts.fused_warm_root,
     )
 
 
@@ -229,7 +218,6 @@ def admm_solve_fixed(y, b, sigma, num_iters: int, lambda_val: float = 1.0,
                      opts: Optional[ADMMOptions] = None) -> torch.Tensor:
     """Run exactly ``num_iters`` iterations (no convergence checks); phi."""
     opts = opts or ADMMOptions()
-    _check_options(opts)
     y = torch.as_tensor(y).to(COMPLEX)
     b = torch.as_tensor(b).to(COMPLEX).to(y.device)
     batch = y.shape[:-1]

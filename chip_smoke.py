@@ -14,14 +14,21 @@ and holding each kernel against its plain PyTorch version:
   backward K6 against their plain versions, three recipe steps of net-3
   against the JAX package's golden steps, then ``generate_dataset`` and
   ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
-  on the card, scored against the committed net-3 checkpoint.
+  on the card, scored against the committed net-3 checkpoint;
+- the other whole-solve routes (phases 18-23): the lists layout K3 and
+  K2's unfolded carry against their plain versions and end to end as the
+  escape hatch ``ADMMOptions(fused_layout="lists", ...)`` (anchor and
+  random-scene gates), the first-generation fused solve K7 against its
+  plain version, the per-step polar solve and the eigh golden, K1's bf16
+  iterate storage, the ``bench_time`` CLI, and their timings.
 
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-and the line before it a JSON summary of the kernels.  Run from the
+the line before it the card's name and power limit, and the one before
+that a JSON summary of the kernels.  Run from the
 repository root with ``python3 chip_smoke.py``; it needs one CUDA device
 and exits non-zero without one.
 """
@@ -68,9 +75,17 @@ TRAIN_ARGS = ("--num-layers", "3", "--g-mode", "chebyshev", "--cheb-impl", "pall
               "--batch-size", "256", "--lr", "1e-3", "--epochs", "15", "--patience", "100",
               "--seed", "0")  # runs/train_net3_r05/config.json
 F1_BAND = 0.005  # random-scene gate: F1 >= eigh control - band
+# The escape hatch of the classical solve: the lists layout (K3), and the
+# same knobs on the lean layout (K2's unfolded carry), at bench.py's pinned
+# control point (sched2, a 4/3 cold root, final_hi off).
+HATCH = dict(g_update="fused_fast", fused_fold_diag=False, fused_warm_root=False,
+             fused_proj_iters=4, fused_inner_iters=3)
+HATCH_DIFF_ITERS = 15
 # The card's published peaks (H100 SXM at 700 W, NVIDIA's datasheet):
-# fp32 outside the tensor cores, and device memory bandwidth.
+# fp32 outside the tensor cores, dense bf16 on the tensor cores (products
+# of bf16-valued operands accumulated in fp32), and device memory bandwidth.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 # Tolerances, with their reasons:
@@ -90,6 +105,39 @@ EXACT_NMSE_TOL = 1e-5
 POLAR_NMSE_TOL = 1e-5
 EIGH_NMSE_TOL = 1e-5
 FAST_NMSE_TOL = 0.2  # detection-grade contract; reference band ~0.06
+K7_NMSE_TOL = 1e-5  # the phi-faithful gate that polar and fused_exact pass
+# - K3 and K2's unfolded carry vs their plain versions, median / max
+#   per-instance relative error of phi after 100 iterations: ~10x the
+#   measured 2.58e-6 / 3.81e-6 (K3) and 2.68e-6 / 4.04e-6 (unfolded K2) on
+#   an H100.
+HATCH_PLAIN_TOL = {"median": 3e-5, "max": 5e-5}
+# - K3 / K2's unfolded carry vs each other and vs the folded K2, 15
+#   iterations, max per-instance relative error: the JAX package's bands
+#   (tests/test_fused_fast.py: lean vs lists 5e-5, folded vs unfolded 1e-3).
+LISTS_VS_LEAN_TOL = 5e-5
+FOLD_VS_UNFOLDED_TOL = 1e-3
+# - K7 vs its plain version, median / max per-instance relative error of phi
+#   after 100 iterations: fp32 sums in another order, amplified by the
+#   quintic's large first-step coefficients (~10x the measured median 8.28e-5
+#   / max 1.92e-4 at B = 512 on an H100); vs the port's per-step polar solve
+#   at 15 iterations, tests/test_fused_kernel.py's bound.
+K7_PLAIN_TOL = {"median": 8e-4, "max": 2e-3}
+K7_POLAR_TOL = 5e-4
+# - K1 with bf16 iterate storage: vs eigh, tests/test_polar.py's bound.
+#   Vs its plain version, per-matrix relative error: where the fp32 sums of
+#   a product run in another order, one bf16 rounding can flip (2^-8
+#   relative) and the later low steps carry it, so a few matrices sit
+#   ~3e-3 away (max; measured on an H100 at B = 512: 4.25e-3 with 494
+#   matrices bitwise equal at hi_steps 0, 2.92e-3 with none bitwise at 1,
+#   where the fp32 polish step reorders every sum); the median matrix
+#   agrees to fp32 noise (measured 0 / 9.7e-8), far below one flip.
+#   A kernel that skips or misplaces the rounding sits ~3e-3-5e-3 from the
+#   plain version on every matrix, so the median gate fails it, and the
+#   gate against the fp32 store requires the rounding to show (measured
+#   median 4.30e-3 / 3.06e-3 at hi_steps 0 / 1).
+K1_BF16_EIGH_TOL = 8e-3
+K1_BF16_PLAIN_TOL = {"median": 1e-5, "max": 1e-2}
+K1_BF16_VS_FP32_MIN = 1e-3  # median per-matrix distance from the fp32 store
 # - K4 vs its plain version, max per-matrix relative error: both fp32, the
 #   sums in another order through 48 dependent Clenshaw steps; ~10x the
 #   measured 5.6e-6 (spiked matrices; 5.7e-7 random) on an H100.
@@ -177,10 +225,12 @@ def to_dev(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
     """(least ms the card could take, what bounds it) for work of ``flops``
-    fp32 operations that must move ``nbytes`` bytes."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    fp32 operations and ``bf16_flops`` operations on bf16-valued operands
+    (accumulated in fp32) that must move ``nbytes`` bytes."""
+    t_ops = flops / PEAK_FP32 + bf16_flops / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -220,6 +270,41 @@ def cheb_inputs(rng, B: int, dev, m: int = 101, degree: int = CHEB_DEGREE):
     Y = torch.from_numpy((rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
                           ).astype(np.complex64)).to(dev)
     return M, c, Y
+
+
+def anchor_scores(phi: torch.Tensor, pcfg) -> dict:
+    """``match_peaks`` stats of the top-3 peaks of anchor solves against the
+    anchor's three targets."""
+    from admmnet_tpu_torch.data.anchor import ANCHOR_F, ANCHOR_TAU
+    from admmnet_tpu_torch.peaks import find_peaks, match_peaks
+
+    pk = find_peaks(phi, 10, 10, pcfg)
+    B = phi.shape[0]
+    return match_peaks(pk.tau.cpu().numpy()[:, :3], pk.f.cpu().numpy()[:, :3],
+                       np.broadcast_to(ANCHOR_TAU, (B, 3)), np.broadcast_to(ANCHOR_F, (B, 3)),
+                       0.05, 0.05)
+
+
+def random_scores(phi: torch.Tensor, raw: dict, pcfg) -> dict:
+    """``match_peaks`` stats of the top-3 peaks of solves of the random
+    scenes against their targets."""
+    from admmnet_tpu_torch.peaks import find_peaks, match_peaks
+
+    pk = find_peaks(phi, 10, 10, pcfg)
+    return match_peaks(pk.tau.cpu().numpy()[:, :3], pk.f.cpu().numpy()[:, :3], raw["tau"],
+                       raw["f"], 0.05, 0.05)
+
+
+def solve_flops(n_inst_iters: int, nsteps: int, n: int = 100) -> float:
+    """Useful fp32 operations of a fused solve: 9 real products per schedule
+    step and 3 closing ones per instance-iteration, at the logical side
+    n + 1."""
+    return n_inst_iters * (9 * nsteps + 3) * 2.0 * (n + 1) ** 3
+
+
+def solve_bytes(B: int, n: int = 100) -> float:
+    """A fused solve reads its (B, n) rows (y/b, w) and A once and writes phi."""
+    return B * ((3 * n + 1) * 4 + n * 8)
 
 
 def herm(X: torch.Tensor) -> torch.Tensor:
@@ -304,10 +389,14 @@ class Smoke:
         t0 = time.time()
         _build.lib()
         secs = time.time() - t0
-        log(f"[2 build] K1 polar.cu + K2 fused_admm_fast.cu + K4/K5 cheb_filter.cu + K6 "
-            f"cheb_bwd.cu, one nvcc each in parallel: {secs:.1f} s (nvcc "
+        log(f"[2 build] K1 polar.cu + K2/K3 fused_admm_fast.cu (P = 128: fused_admm_fast_p128.cu)"
+            f" + K7 fused_admm.cu + K4/K5 cheb_filter.cu + K6 cheb_bwd.cu, one nvcc each in "
+            f"parallel: {secs:.1f} s (nvcc "
             f"{_build.build_seconds}) -> "
             f"{_build.library_path().name}")
+        if _build.compile_seconds:
+            log("[2 build] nvcc wall seconds per source: " + ", ".join(
+                f"{name} {secs:.1f}" for name, secs in sorted(_build.compile_seconds.items())))
         for name, text in _build.build_logs.items():
             for ln in text.splitlines():
                 if "registers" in ln or "spill" in ln:
@@ -419,8 +508,6 @@ class Smoke:
             PRODUCTION_PEAKS,
             PeakSearchConfig,
         )
-        from admmnet_tpu_torch.data.anchor import ANCHOR_F, ANCHOR_TAU
-        from admmnet_tpu_torch.peaks import find_peaks, match_peaks
         from admmnet_tpu_torch.solver import admm_solve_fixed
 
         cli = run_cli(main_classical.main, ["--deploy", "--json", "--device", "cuda"])
@@ -431,10 +518,7 @@ class Smoke:
         y, b, s = (x[:512] for x in self.anchor)
         for label, iters, pcfg in (("deploy", DETECTION_BUDGET_ITERS, PRODUCTION_PEAKS),
                                    ("full", ITERS, PeakSearchConfig(max_peaks=8))):
-            pk = find_peaks(admm_solve_fixed(y, b, s, iters, 1.0, self.prod), 10, 10, pcfg)
-            tau, f = pk.tau.cpu().numpy(), pk.f.cpu().numpy()
-            st = match_peaks(tau[:, :3], f[:, :3], np.broadcast_to(ANCHOR_TAU, (512, 3)),
-                             np.broadcast_to(ANCHOR_F, (512, 3)), 0.05, 0.05)
+            st = anchor_scores(admm_solve_fixed(y, b, s, iters, 1.0, self.prod), pcfg)
             log(f"[6 anchor {label}] 512 scenes x {iters} iters fused_fast: F1 "
                 f"{st['f1']:.4f} (need 1.0), tau RMSE {st['tau_rmse']:.5f}, "
                 f"f RMSE {st['f_rmse']:.5f}")
@@ -448,12 +532,12 @@ class Smoke:
             ADMMOptions,
             PeakSearchConfig,
         )
-        from admmnet_tpu_torch.peaks import find_peaks, match_peaks
         from admmnet_tpu_torch.solver import admm_solve_fixed
 
         with np.load(RANDOM_SCENES) as d:
             raw = {k: d[k] for k in d.files}
         y, b, s = to_dev(self.dev, raw["y"], raw["b"], raw["sigma"])
+        self.random = (raw, (y, b, s))
         f1 = {}
         for label, opts, iters, pcfg in (
             ("prod", self.prod, ITERS, PeakSearchConfig(max_peaks=8)),
@@ -461,12 +545,11 @@ class Smoke:
             ("deploy", self.prod, DETECTION_BUDGET_ITERS, PRODUCTION_PEAKS),
         ):
             t0 = time.time()
-            pk = find_peaks(admm_solve_fixed(y, b, s, iters, 1.0, opts), 10, 10, pcfg)
-            st = match_peaks(pk.tau.cpu().numpy()[:, :3], pk.f.cpu().numpy()[:, :3],
-                             raw["tau"], raw["f"], 0.05, 0.05)
+            st = random_scores(admm_solve_fixed(y, b, s, iters, 1.0, opts), raw, pcfg)
             f1[label] = st["f1"]
             log(f"[7 random {label}] {len(raw['y'])} scenes x {iters} iters: F1 "
                 f"{st['f1']:.4f}, tau RMSE {st['tau_rmse']:.5f} [{time.time() - t0:.1f} s]")
+        self.f1_eigh = f1["eigh"]
         for label in ("prod", "deploy"):
             ok = f1[label] >= f1["eigh"] - F1_BAND
             log(f"[7 random gate {label}] F1 {f1[label]:.4f} >= eigh control "
@@ -495,11 +578,7 @@ class Smoke:
         k2 = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
         k2p = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
         n_ii = B_TIME_K2 * ITERS
-        # per iteration: 9 real products per schedule step + 3 closing ones,
-        # at the logical side n + 1 = 101; only (B, n) rows in and out
-        n = y.shape[-1]
-        k2_flops = n_ii * (9 * len(kw["schedule"]) + 3) * 2.0 * (n + 1) ** 3
-        k2_bound, k2_by = bound(k2_flops, B_TIME_K2 * ((3 * n + 1) * 4 + n * 8))
+        k2_bound, k2_by = bound(solve_flops(n_ii, len(kw["schedule"])), solve_bytes(B_TIME_K2))
         log(f"[9 time K2 fused_fast] B={B_TIME_K2} x {ITERS}: kernel {k2:.1f} ms "
             f"({n_ii / k2 * 1e3:.0f} inst-iter/s), plain {k2p:.1f} ms "
             f"({n_ii / k2p * 1e3:.0f} inst-iter/s); bound {k2_bound:.1f} ms "
@@ -943,6 +1022,255 @@ class Smoke:
             f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}), {len(kernels)} kernel "
             f"names; by device time: {top} {tag}")
 
+    # 18 ------------------------------------------------------------------
+    def unfolded_vs_plain(self):
+        """K3 (lists) and K2's unfolded carry vs their plain versions."""
+        from admmnet_tpu_torch.core.config import ADMMOptions
+        from admmnet_tpu_torch.kernels.fused_admm_fast import (
+            admm_solve_fused_fast,
+            admm_solve_fused_fast_plain,
+        )
+        from admmnet_tpu_torch.solver.admm import fused_kernel_options
+
+        y, b, s = (x[:B_SOLVE] for x in self.anchor)
+        for key, layout in (("K3", "lists"), ("K2", "lean")):
+            kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
+            pk = admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw)
+            pp = admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
+                  f"{key} {layout}: non-finite phi")
+            e = rel_err(pk, pp)
+            med, mx = float(e.median()), float(e.max())
+            worst = float((pk - pp).abs().max())
+            if key == "K3":
+                self.kernels["K3"] = {"max_abs_err": worst}
+            else:
+                self.kernels["K2"]["max_abs_err"] = max(self.kernels["K2"]["max_abs_err"], worst)
+            log(f"[18 {key} {layout}, unfolded] B={B_SOLVE} x {ITERS} iters, sched2, 4/3 cold "
+                f"root, final_hi off: kernel vs plain per-instance rel err median {med:.3e} "
+                f"(tol {HATCH_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
+                f"{HATCH_PLAIN_TOL['max']:g})")
+            check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
+                  f"{key} ({layout}, unfolded) disagrees with its plain version")
+
+    # 19 ------------------------------------------------------------------
+    def escape_hatch(self):
+        """The escape hatch end to end through admm_solve_fixed: lists (K3)
+        and the same knobs on the lean layout (K2 unfolded)."""
+        from admmnet_tpu_torch.core.config import (
+            DETECTION_BUDGET_ITERS,
+            PRODUCTION_PEAKS,
+            ADMMOptions,
+            PeakSearchConfig,
+        )
+        from admmnet_tpu_torch.kernels import fused_admm_fast
+        from admmnet_tpu_torch.peaks import scale_invariant_nmse
+        from admmnet_tpu_torch.solver import admm_solve_fixed
+
+        with np.load(GOLDEN_EIGH) as d:
+            golden = d["phi"]
+        raw, (yr, br, sr) = self.random
+        y, b, s = self.anchor
+        fused_admm_fast.launches.reset()
+        fused_admm_fast.lists_launches.reset()
+        for layout in ("lists", "lean"):
+            opts = ADMMOptions(fused_layout=layout, **HATCH)
+            tag = f"[19 hatch {layout}]"
+            for iters, pcfg in ((DETECTION_BUDGET_ITERS, PRODUCTION_PEAKS),
+                                (ITERS, PeakSearchConfig(max_peaks=8))):
+                st = anchor_scores(admm_solve_fixed(y[:512], b[:512], s[:512], iters, 1.0, opts),
+                                   pcfg)
+                log(f"{tag} anchor 512 scenes x {iters} iters: F1 {st['f1']:.4f} (need 1.0), "
+                    f"tau RMSE {st['tau_rmse']:.5f}")
+                check(st["f1"] == 1.0, f"escape hatch ({layout}): anchor F1 at {iters} iterations")
+            st = random_scores(admm_solve_fixed(yr, br, sr, ITERS, 1.0, opts), raw,
+                               PeakSearchConfig(max_peaks=8))
+            ok = st["f1"] >= self.f1_eigh - F1_BAND
+            log(f"{tag} random {len(raw['y'])} scenes x {ITERS} iters: F1 {st['f1']:.4f} >= "
+                f"eigh control {self.f1_eigh:.4f} - {F1_BAND}: {ok}")
+            check(ok, f"escape hatch ({layout}): random-scene gate")
+            phi = admm_solve_fixed(y, b, s, ITERS, 1.0, opts).cpu().numpy()
+            nmse = scale_invariant_nmse(phi, golden[:len(phi)])
+            log(f"{tag} B={len(phi)} x {ITERS}: phi NMSE vs phi_eigh_2048 {nmse:.3e} "
+                f"(reported; the gates of this route are the detection gates above)")
+            check(bool(np.isfinite(nmse)), f"escape hatch ({layout}): non-finite phi")
+        self.hatch_launches = {"K3": fused_admm_fast.lists_launches.count,
+                               "K2 unfolded": fused_admm_fast.launches.count}
+
+        # the layouts against each other, JAX's bands
+        it = HATCH_DIFF_ITERS
+        phis = {name: admm_solve_fixed(y, b, s, it, 1.0, ADMMOptions(**kw))
+                for name, kw in (("lists", dict(HATCH, fused_layout="lists")),
+                                 ("lean", HATCH),
+                                 ("folded", dict(HATCH, fused_fold_diag=True)))}
+        e_ll = float(rel_err(phis["lists"], phis["lean"]).max())
+        e_fold = float(rel_err(phis["folded"], phis["lean"]).max())
+        e_lf = float(rel_err(phis["lists"], phis["folded"]).max())
+        log(f"[19 hatch layouts] B={B_SOLVE} x {it} iters, max per-instance rel err: K3 vs "
+            f"unfolded K2 {e_ll:.3e} (tol {LISTS_VS_LEAN_TOL:g}); folded vs unfolded K2 "
+            f"{e_fold:.3e}, K3 vs folded K2 {e_lf:.3e} (tol {FOLD_VS_UNFOLDED_TOL:g})")
+        check(e_ll < LISTS_VS_LEAN_TOL, "K3 vs the unfolded K2")
+        check(e_fold < FOLD_VS_UNFOLDED_TOL and e_lf < FOLD_VS_UNFOLDED_TOL,
+              "the folded K2 vs the unfolded layouts")
+
+    # 20 ------------------------------------------------------------------
+    def k7_path(self):
+        """K7 on the anchor: the solve scored against the eigh golden, then
+        held against its plain version and the per-step polar solve."""
+        from admmnet_tpu_torch.core.config import ADMMOptions
+        from admmnet_tpu_torch.kernels import fused_admm as k7
+        from admmnet_tpu_torch.peaks import scale_invariant_nmse
+        from admmnet_tpu_torch.solver import admm_solve_fixed
+
+        with np.load(GOLDEN_EIGH) as d:
+            golden = d["phi"]
+        y, b, s = (x[:B_EXACT] for x in self.anchor)
+        k7.launches.reset()
+        t0 = time.time()
+        pk = k7.admm_solve_fused(y, b, s, ITERS)
+        p15 = k7.admm_solve_fused(y, b, s, HATCH_DIFF_ITERS)
+        phi = pk.cpu().numpy()
+        secs = time.time() - t0
+        self.k7_launches = k7.launches.count
+        check(bool(np.all(np.isfinite(phi.view(np.float32)))), "K7: non-finite phi")
+        nmse = scale_invariant_nmse(phi, golden[:B_EXACT])
+        log(f"[20 K7] B={B_EXACT} x {ITERS}: phi NMSE vs phi_eigh_2048 {nmse:.3e} "
+            f"(tol {K7_NMSE_TOL:g}) [{secs:.1f} s]")
+        check(nmse <= K7_NMSE_TOL, f"K7: phi NMSE {nmse:.3e} > {K7_NMSE_TOL:g}")
+        x15 = admm_solve_fixed(y, b, s, HATCH_DIFF_ITERS, 1.0, ADMMOptions(g_update="polar"))
+        e_pol = float(rel_err(p15, x15).max())
+        log(f"[20 K7 vs polar] B={B_EXACT} x {HATCH_DIFF_ITERS} iters: max per-instance rel "
+            f"err vs admm_solve_fixed(g_update='polar') {e_pol:.3e} (tol {K7_POLAR_TOL:g})")
+        check(e_pol < K7_POLAR_TOL, "K7 vs the per-step polar solve")
+        # the plain version: ~1e5 small launches, so run once and time that run
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pp = k7.admm_solve_fused_plain(y, b, s, ITERS)
+        end.record()
+        end.synchronize()
+        self.k7_plain_ms = start.elapsed_time(end)
+        e = rel_err(pk, pp)
+        med, mx = float(e.median()), float(e.max())
+        self.kernels["K7"] = {"max_abs_err": float((pk - pp).abs().max())}
+        log(f"[20 K7 vs plain] B={B_EXACT} x {ITERS} iters: per-instance rel err median "
+            f"{med:.3e} (tol {K7_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
+            f"{K7_PLAIN_TOL['max']:g})")
+        check(med < K7_PLAIN_TOL["median"] and mx < K7_PLAIN_TOL["max"],
+              "K7 disagrees with its plain version")
+
+    # 21 ------------------------------------------------------------------
+    def k1_bf16(self):
+        """K1's bf16 iterate storage: vs eigh and its plain version, and one
+        polar_fast solve of the anchor with polar_bf16_store."""
+        from admmnet_tpu_torch.core.config import ADMMOptions, PeakSearchConfig
+        from admmnet_tpu_torch.kernels import polar
+        from admmnet_tpu_torch.kernels.polar import (
+            psd_project_polar_kernel,
+            psd_project_polar_plain,
+        )
+        from admmnet_tpu_torch.ops.projections import psd_project_eigh
+        from admmnet_tpu_torch.solver import admm_solve_fixed
+
+        M = random_hermitian(np.random.default_rng(6), B_K1, 101, self.dev)
+        Pe = psd_project_eigh(M)
+        for hs in (0, 1):
+            Pk = psd_project_polar_kernel(M, mode="fast", hi_steps=hs, bf16_store=True)
+            Pp = psd_project_polar_plain(M, "fast", hs, bf16_store=True)
+            P32 = psd_project_polar_kernel(M, mode="fast", hi_steps=hs)
+            torch.cuda.synchronize()
+            e_plain = rel_err(Pk, Pp)
+            med, mx = float(e_plain.median()), float(e_plain.max())
+            e_eigh = float(rel_err(Pk, Pe).max())
+            d32 = float(rel_err(Pk, P32).median())
+            log(f"[21 K1 bf16_store hi_steps={hs}] B={B_K1} m=101: kernel vs eigh {e_eigh:.3e} "
+                f"(tol {K1_BF16_EIGH_TOL:g}); vs plain per-matrix rel err median {med:.3e} "
+                f"(tol {K1_BF16_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
+                f"{K1_BF16_PLAIN_TOL['max']:g}), bitwise equal {int((e_plain == 0).sum())}/"
+                f"{B_K1}; vs the fp32 store median {d32:.3e} (must be > "
+                f"{K1_BF16_VS_FP32_MIN:g})")
+            check(e_eigh < K1_BF16_EIGH_TOL, "K1 bf16_store too far from eigh")
+            check(med < K1_BF16_PLAIN_TOL["median"] and mx < K1_BF16_PLAIN_TOL["max"],
+                  "K1 bf16_store disagrees with its plain version")
+            check(d32 > K1_BF16_VS_FP32_MIN, "K1 bf16_store: no bf16 rounding shows")
+        y, b, s = (x[:512] for x in self.anchor)
+        opts = ADMMOptions(g_update="polar_fast", polar_bf16_store=True)
+        polar.launches.reset()
+        phi = admm_solve_fixed(y, b, s, ITERS, 1.0, opts)
+        self.k1_bf16_launches = polar.launches.count
+        st = anchor_scores(phi, PeakSearchConfig(max_peaks=8))
+        log(f"[21 polar_fast + polar_bf16_store] anchor 512 scenes x {ITERS} iters through "
+            f"admm_solve_fixed: F1 {st['f1']:.4f}, tau RMSE {st['tau_rmse']:.5f}")
+
+    # 22 ------------------------------------------------------------------
+    def bench_time_cli(self):
+        from admmnet_tpu_torch.cli import bench_time
+
+        for argv in (["--what", "admm", "--g-update", "fused_fast", "--runs", "1000"],
+                     ["--what", "admm", "--g-update", "fused_fast", "--sequential",
+                      "--runs", "20"],
+                     ["--what", "e2e", "--ckpt", str(NET3), "--layers", "3", "--g-mode",
+                      "chebyshev", "--cheb-impl", "pallas"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                bench_time.main(argv + ["--device", "cuda"])
+            lines = buf.getvalue().splitlines()
+            check(any("per solve" in ln for ln in lines), f"bench_time {argv}: no timing line")
+            log(f"[22 bench_time] {' '.join(argv)} [{self.card}]:")
+            for ln in lines:
+                log(f"[22 bench_time]   {ln}")
+
+    # 23 ------------------------------------------------------------------
+    def variant_timings(self):
+        from admmnet_tpu_torch.core.config import ADMMOptions
+        from admmnet_tpu_torch.data.anchor import make_anchor_batch
+        from admmnet_tpu_torch.kernels import fused_admm as k7
+        from admmnet_tpu_torch.kernels.fused_admm_fast import (
+            admm_solve_fused_fast,
+            admm_solve_fused_fast_plain,
+        )
+        from admmnet_tpu_torch.kernels.polar import (
+            psd_project_polar_kernel,
+            psd_project_polar_plain,
+        )
+        from admmnet_tpu_torch.solver.admm import fused_kernel_options
+
+        tag = f"[{self.card}]"
+        y, b, s = to_dev(self.dev, *make_anchor_batch(B_TIME_K2, "redemod", seed=0))
+        n_ii = B_TIME_K2 * ITERS
+        for key, layout in (("K3", "lists"), ("K2", "lean")):
+            kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
+            ms = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
+            pms = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
+            bms, by = bound(solve_flops(n_ii, len(kw["schedule"])), solve_bytes(B_TIME_K2))
+            log(f"[23 time {key} {layout}, unfolded] B={B_TIME_K2} x {ITERS}, sched2, 4/3 cold: "
+                f"kernel {ms:.1f} ms ({n_ii / ms * 1e3:.0f} inst-iter/s), plain {pms:.1f} ms; "
+                f"bound {bms:.1f} ms ({by}) {tag}")
+            if key == "K3":
+                self.kernels["K3"].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                          library_ms=None)
+        del y, b, s
+
+        y, b, s = (x[:B_EXACT] for x in self.anchor)
+        ms = cuda_ms(lambda: k7.admm_solve_fused(y, b, s, ITERS))
+        bms, by = bound(solve_flops(B_EXACT * ITERS, 7), solve_bytes(B_EXACT))
+        log(f"[23 time K7] B={B_EXACT} x {ITERS}: kernel {ms:.1f} ms "
+            f"({B_EXACT * ITERS / ms * 1e3:.0f} inst-iter/s), plain {self.k7_plain_ms:.1f} ms "
+            f"(one run, phase 20); bound {bms:.1f} ms ({by}) {tag}")
+        self.kernels["K7"].update(ms=ms, plain_ms=self.k7_plain_ms, bound_ms=bms, bound_by=by,
+                                  library_ms=None)
+
+        M = random_hermitian(np.random.default_rng(1), B_TIME_K1, 101, self.dev)
+        ms = cuda_ms(lambda: psd_project_polar_kernel(M, mode="fast", bf16_store=True), reps=3)
+        pms = cuda_ms(lambda: psd_project_polar_plain(M, "fast", bf16_store=True), reps=3)
+        # the 6 low steps' 9 products each take bf16-valued operands; the 3
+        # closing products read the fp32 M
+        bms, by = bound(B_TIME_K1 * 3 * 2.0 * 101**3, B_TIME_K1 * 2 * 101 * 101 * 8,
+                        bf16_flops=B_TIME_K1 * 9 * 6 * 2.0 * 101**3)
+        log(f"[23 time K1 fast bf16_store] B={B_TIME_K1} m=101: kernel {ms:.2f} ms, plain "
+            f"{pms:.2f} ms per call; bound {bms:.2f} ms ({by}) {tag}")
+
 
 def main() -> int:
     from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, polar
@@ -998,6 +1326,21 @@ def main() -> int:
     counts.update(K5=tl["K5"], K6=tl["K6"])
     sm.training_timings()
     sm.tmp.cleanup()
+    sm.unfolded_vs_plain()
+    # launches are counted over each route's solves: the escape hatch's in
+    # phase 19, K7's in phase 20, K1's with bf16_store in phase 21's solve
+    sm.escape_hatch()
+    sm.k7_path()
+    sm.k1_bf16()
+    hl = sm.hatch_launches
+    counts.update(K3=hl["K3"], K7=sm.k7_launches)
+    log(f"[24 launches] escape hatch (phase 19): K3 {hl['K3']}, unfolded K2 "
+        f"{hl['K2 unfolded']}; K7 (phase 20) {sm.k7_launches}; K1 with bf16_store (phase 21's "
+        f"solve) {sm.k1_bf16_launches} (each must be > 0)")
+    check(min(hl["K3"], hl["K2 unfolded"], sm.k7_launches, sm.k1_bf16_launches) > 0,
+          "a kernel of the whole-solve routes never launched")
+    sm.bench_time_cli()
+    sm.variant_timings()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -1011,6 +1354,10 @@ def main() -> int:
                "admmnet_tpu/kernels/cheb_filter.py:343"),
         "K6": ("cheb_bwd", "admmnet_tpu_torch/kernels/csrc/cheb_bwd.cu",
                "admmnet_tpu/kernels/cheb_filter.py:379"),
+        "K3": ("fused_admm_lists", "admmnet_tpu_torch/kernels/csrc/fused_admm_fast.cu",
+               "admmnet_tpu/kernels/fused_admm_fast.py:492"),
+        "K7": ("fused_admm", "admmnet_tpu_torch/kernels/csrc/fused_admm.cu",
+               "admmnet_tpu/kernels/fused_admm.py:209"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,6 +1,7 @@
 """Fused ADMM solve kernel (kernels/fused_admm_fast.py): plain version vs the
 JAX Pallas kernel in interpret mode (lean layout, fold_diag), the solver
-dispatch and the unported variants.  The CUDA kernel itself is checked on
+dispatch and the variants that were refused before they were ported (their
+parity with JAX is in tests/test_torch_fused_variants.py).  The CUDA kernel itself is checked on
 the card by tests/test_torch_cuda.py and chip_smoke.py.
 
 The port's CPU result is held against the JAX kernel's interpret mode, not
@@ -46,7 +47,7 @@ def _both(y, b, s, iters, rho, kw):
     j = np.asarray(jax_fused(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), iters, rho, 1.0,
                              kblk=2, interpret=True, layout="lean", fold_diag=True, **kw))
     t = kf.admm_solve_fused_fast(torch.from_numpy(y), torch.from_numpy(b),
-                                 torch.from_numpy(s), iters, rho, 1.0, **kw)
+                                 torch.from_numpy(s), iters, rho, 1.0, fold_diag=True, **kw)
     assert t.dtype == torch.complex64 and t.shape == y.shape
     return t.numpy(), j
 
@@ -87,9 +88,18 @@ def test_solver_dispatch_runs_the_plain_fused_solve_on_cpu():
     {"layout": "lists"}, {"ablate": "h"}, {"loop_unroll": 2}, {"fold_diag": False},
 ])
 def test_unported_variants_raise(kw):
+    """Only the ablate profiling variants are not ported and raise; the
+    lists layout, loop_unroll and the unfolded carry run their plain
+    version on CPU tensors (loop_unroll changes no arithmetic)."""
     y, b, s = map(torch.from_numpy, make_anchor_batch(2, mode="redemod", seed=1))
-    with pytest.raises(NotImplementedError):
-        kf.admm_solve_fused_fast(y, b, s, 2, **kw)
+    if "ablate" in kw:
+        with pytest.raises(NotImplementedError):
+            kf.admm_solve_fused_fast(y, b, s, 2, **kw)
+        return
+    got = kf.admm_solve_fused_fast(y, b, s, 2, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "loop_unroll"}
+    assert torch.equal(got, kf.admm_solve_fused_fast_plain(y, b, s, 2, **plain_kw))
+    assert bool(torch.all(torch.isfinite(torch.view_as_real(got))))
 
 
 @pytest.mark.parametrize("opts", [
@@ -99,9 +109,30 @@ def test_unported_variants_raise(kw):
     ADMMOptions(g_update="polar_fast", polar_bf16_store=True),
 ])
 def test_solver_rejects_unported_options(opts):
+    """The solver refuses what the JAX dispatch refuses: the lists layout
+    with the lean-only defaults (fused_fold_diag, fused_warm_root) raises its
+    ValueError.  The other options run: fused_unroll as fused_unroll=1, the
+    unfolded fused_exact as its plain version, polar_bf16_store as the
+    bf16-store polar_fast solve."""
     y, b, s = map(torch.from_numpy, make_anchor_batch(2, mode="redemod", seed=1))
-    with pytest.raises(NotImplementedError):
-        admm_solve_fixed(y, b, s, 2, 1.0, opts)
+    if opts.fused_layout == "lists":
+        with pytest.raises(ValueError, match="lean-layout options"):
+            admm_solve_fixed(y, b, s, 2, 1.0, opts)
+        return
+    got = admm_solve_fixed(y, b, s, 2, 1.0, opts)
+    assert bool(torch.all(torch.isfinite(torch.view_as_real(got))))
+    if opts.g_update == "fused_fast":
+        base = ADMMOptions(g_update="fused_fast")
+        assert torch.equal(got, admm_solve_fixed(y, b, s, 2, 1.0, base))
+    elif opts.g_update == "fused_exact":
+        want = kf.admm_solve_fused_fast_plain(y, b, s, 2, 1.0, 1.0,
+                                              **fused_kernel_options(opts))
+        assert fused_kernel_options(opts)["fold_diag"] is False
+        assert torch.equal(got, want)
+    else:
+        fp32 = admm_solve_fixed(y, b, s, 2, 1.0, ADMMOptions(g_update="polar_fast"))
+        assert not torch.equal(got, fp32)
+        assert float(torch.max(torch.abs(got - fp32))) < 1e-2 * float(torch.max(torch.abs(fp32)))
 
 
 def test_warm_bracket_matches_jax_over_a_drifting_sequence():
