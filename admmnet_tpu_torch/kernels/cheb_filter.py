@@ -8,7 +8,9 @@ Counterparts of ``admmnet_tpu/kernels/cheb_filter.py``:
 - K5, ``_cheb_fwd_with_residuals`` (the training forward): the same kernel,
   which then also writes the final Clenshaw carries (b_1, b_2);
 - K6, ``_cheb_bwd`` (the reversible, checkpoint-free backward): the CUDA
-  kernel of ``csrc/cheb_bwd.cu``.
+  kernel of ``csrc/cheb_bwd.cu``, one thread-block cluster per matrix with
+  its working planes in the cluster's shared memory and every product on
+  the tensor cores in 3xTF32 (``csrc/tc_product.cuh``).
 
 Each has a plain version, the same dataflow in batched torch ops, which a
 CPU tensor runs; a CUDA tensor launches the kernel.  ``ChebFilterFn`` wires
@@ -35,9 +37,11 @@ Abar += 2 u t, (u, v) <- (v + 2 A u, -u), (s, t) <- (t, herm(c_j I + 2 A t
 - s)); finally cbar_{degree-1} = Re tr u.  The JAX kernel's last product
 with the rebuilt b_degree is left out: b_degree is exactly zero.  Then
 the chain through the normalization, in torch ops:
-Mbar = (Abar - Re(sum conj(A) Abar) A) / r.  Products are fp32 by
-default, the counterpart of ``bwd_three_pass=False``; ``three_pass=True``
-selects the TPU kernel's literal 3-pass split-bf16 product.
+Mbar = (Abar - Re(sum conj(A) Abar) A) / r.  The kernel's products are
+fp32-faithful (3xTF32, ~2^-21 per product) and its plain version's IEEE
+fp32, the counterparts of the TPU kernel's 3-pass tier; the plain version
+also takes ``three_pass=True``, the TPU kernel's literal 3-pass split-bf16
+product, for parity tests with the JAX package's default.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ from admmnet_tpu_torch.kernels.polar import LaunchCounter, karatsuba, padded_sid
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
 
 SCRATCH_PLANES = 7
-BWD_SCRATCH_PLANES = 11
 
 launches = LaunchCounter()  # K4: the inference forward
 fwd_launches = LaunchCounter()  # K5: the training forward
@@ -218,7 +221,7 @@ def cheb_fwd_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
 
 
 def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
-                    degree: int, three_pass: bool = False):
+                    degree: int):
     """Launch K6 on CUDA tensors: (ABr, ABi, cbar), Abar's zero-padded planes
     (B, P, P) and cbar (B, degree), float32.  ``carries``: K5's four
     (B, P, P) planes; ``Y``: the output's cotangent, shaped like M."""
@@ -241,19 +244,31 @@ def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Ten
     ABr = torch.empty_like(Mr)
     ABi = torch.empty_like(Mi)
     cbar = torch.empty((B, degree), dtype=torch.float32, device=M.device)
-    scratch = torch.empty((B, BWD_SCRATCH_PLANES, P, P), dtype=torch.float32,
-                          device=M.device)
     lib = _build.lib()
     with torch.cuda.device(M.device):
         err = lib.cheb_bwd_launch(
             Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Yr.data_ptr(), Yi.data_ptr(),
             *(x.data_ptr() for x in carries), ABr.data_ptr(), ABi.data_ptr(),
-            cbar.data_ptr(), scratch.data_ptr(), B, P, m, degree, int(three_pass),
-            torch.cuda.current_stream(M.device).cuda_stream,
+            cbar.data_ptr(), B, P, m, degree, torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "cheb_bwd_launch")
     bwd_launches.count += 1
     return ABr, ABi, cbar
+
+
+def cheb_bwd_occupancy(P: int = 112) -> dict:
+    """K6's residency on the current card at plane side P: ``clusters`` (how
+    many of its thread-block clusters the card holds at once),
+    ``smem_bytes`` (dynamic shared memory per CTA) and ``threads`` (per
+    CTA)."""
+    import ctypes
+
+    from admmnet_tpu_torch.kernels import _build
+
+    out = [ctypes.c_int() for _ in range(3)]
+    _build.check(_build.lib().cheb_bwd_occupancy(P, *(ctypes.addressof(x) for x in out)),
+                 "cheb_bwd_occupancy")
+    return dict(zip(("clusters", "smem_bytes", "threads"), (x.value for x in out)))
 
 
 def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
@@ -268,17 +283,16 @@ def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
     return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape), carries
 
 
-def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, degree: int,
-             three_pass: bool = False):
+def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, degree: int):
     """(Abar, cbar) of the reversible backward, in the normalized domain: K6
     for a CUDA tensor, ``cheb_bwd_plain`` for a CPU tensor; ``carries`` as
     ``cheb_fwd_with_residuals`` returned them on that device."""
     if M.device.type == "cpu":
-        return cheb_bwd_plain(M, coeffs, carries, Y, degree, three_pass)
+        return cheb_bwd_plain(M, coeffs, carries, Y, degree)
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     m = M.shape[-1]
-    ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree, three_pass)
+    ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree)
     Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]).reshape(M.shape)
     return Abar, cbar.reshape(coeffs.shape)
 
@@ -291,18 +305,17 @@ class ChebFilterFn(torch.autograd.Function):
     plain versions in fp64 (for gradcheck)."""
 
     @staticmethod
-    def forward(ctx, M, coeffs, degree: int, three_pass: bool = False):
+    def forward(ctx, M, coeffs, degree: int):
         out, carries = cheb_fwd_with_residuals(M, coeffs, degree)
         ctx.save_for_backward(M, coeffs, *carries)
         ctx.degree = degree
-        ctx.three_pass = three_pass
         return out
 
     @staticmethod
     def backward(ctx, gout):
         M, coeffs, *carries = ctx.saved_tensors
-        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree, ctx.three_pass)
-        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None, None
+        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree)
+        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None
 
 
 def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> torch.Tensor:

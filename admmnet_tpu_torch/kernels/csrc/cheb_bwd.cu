@@ -22,183 +22,300 @@
 //     (s, t) <- (t, herm(c_j I + 2 A t - s))      (skipped at j = degree-2)
 //   cbar_{degree-1} = Re tr u          (its Abar term, 2 u b_degree, is 0)
 //
-// A and every b_j are Hermitian, so no product needs a transposed operand:
-// A u and u t are plain complex products.  u and t do not commute, so each
-// product is common.cuh's general Karatsuba product (3 real products, exact
-// for any complex matrices).  Products are IEEE fp32 (SIMT FMA), or with
-// SPLIT the literal 3-pass split-bf16 product of the TPU kernel's default.
+// The kernel runs the first line as step 0 of the loop, with u = V, t = b_1,
+// v = 0 and the factor 1 in place of 2, then sets (s, t) = (b_1, b_2).
+// A and every b_j are Hermitian, so no product needs a transposed operand;
+// u and t do not commute, so each product is the general Karatsuba form.
 //
 // Bound on this card: arithmetic.  3 degree - 5 complex products of side m
 // per matrix (degree 48, m = 101: 8.6e8 FLOP of useful work) against one
-// read of M, Y, the four carry planes and one write of Abar (0.4 MB).  Work
-// planes: A, u, v, s, t as real/imaginary pairs and the Karatsuba temporary
-// (11 planes, 552 KB per block at P = 112) sit in a per-block global scratch
-// that L2 serves while the block runs; Abar accumulates in its output
-// planes; every product streams through common.cuh's shared-memory tiles
-// into 7 x 7 register micro-tiles.  One thread block per matrix.  132
-// resident blocks need 73 MB of work planes, more than the 50 MB L2.
+// read of M, Y, the four carry planes and one write of Abar (0.4 MB).
+//
+// Design (tc_product.cuh): one thread-block cluster of P / 16 CTAs per
+// matrix; CTA q owns rows [16 q, 16 q + 16) of every working plane in its
+// shared memory: A, u, t and s as real/imaginary band planes (s doubles as
+// the exchange plane of herm), with v and Abar in registers in the mma
+// accumulator layout.  Each step is two passes over K on the tensor cores
+// (3xTF32): u t and A t share the staged bands of t, A u reads the bands of
+// u; every CTA reads every band of t and u from its owner through
+// distributed shared memory.  herm's transpose and the trace's sum read
+// across the cluster between two cluster barriers per step.  Nothing but the
+// inputs and outputs touches device memory.
 //
 // Padding: Y, M and the carries are zero past the logical side m and c_j is
 // added on the logical diagonal only, so every padded row and column of
-// every plane stays exactly zero.
+// every plane stays exactly zero (a zero splits into zero tf32 halves).
 #include "common.cuh"
+#include "tc_product.cuh"
 
 namespace admmk {
 
-constexpr int BWD_PLANES = 11;  // Ar, Ai, ur, ui, vr, vi, sr, si, tr, ti, T
+namespace cg = cooperative_groups;
+using tcp::BAND;
+using tcp::CAcc;
+using tcp::NPW;
 
-// Re tr X over the logical diagonal; every thread gets the result.
 template <int P>
-__device__ __forceinline__ float real_trace(Tiles<P>& sm, const float* Xr, int m) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < m; i += NT) s += Xr[i * P + i];
-  return block_sum<P>(sm, s);
+constexpr int bwd_smem_floats() {
+  // 8 band planes (Ar, Ai, ur, ui, tr, ti, sr, si), the staging double
+  // buffer, the block reduction's partials and two cluster-visible slots
+  return 8 * tcp::Layout<P>::PLANE + 4 * tcp::Layout<P>::SLICE + 16;
 }
 
-template <int P, bool SPLIT>
-__global__ void __launch_bounds__(NT) cheb_bwd_kernel(
+// At P = 112 two CTAs share an SM (128 registers a thread, with some
+// spills); at P = 128 the shared memory holds one.
+template <int P>
+__global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd_kernel(
     const float* __restrict__ Mr_all, const float* __restrict__ Mi_all,
     const float* __restrict__ coeffs, const float* __restrict__ Yr_all,
     const float* __restrict__ Yi_all, const float* __restrict__ b1r_all,
     const float* __restrict__ b1i_all, const float* __restrict__ b2r_all,
-    const float* __restrict__ b2i_all, float* ABr_all, float* ABi_all, float* cbar_all,
-    float* scratch, int m, int degree) {
-  constexpr int MT = P / TS;
-  constexpr int PP = P * P;
-  __shared__ Tiles<P> sm;
-  const size_t off = static_cast<size_t>(blockIdx.x) * PP;
-  const float* Mr = Mr_all + off;
-  const float* Mi = Mi_all + off;
-  const float* Yr = Yr_all + off;
-  const float* Yi = Yi_all + off;
-  float* ABr = ABr_all + off;
-  float* ABi = ABi_all + off;
-  const float* c = coeffs + static_cast<size_t>(blockIdx.x) * degree;
-  float* cb = cbar_all + static_cast<size_t>(blockIdx.x) * degree;
-  float* base = scratch + static_cast<size_t>(blockIdx.x) * BWD_PLANES * PP;
-  float* Ar = base;
-  float* Ai = base + 1 * PP;
-  float* ur = base + 2 * PP;
-  float* ui = base + 3 * PP;
-  float* vr = base + 4 * PP;
-  float* vi = base + 5 * PP;
-  float* sr = base + 6 * PP;
-  float* si = base + 7 * PP;
-  float* tr = base + 8 * PP;
-  float* ti = base + 9 * PP;
-  float* T = base + 10 * PP;
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
+    const float* __restrict__ b2i_all, float* ABr_all, float* ABi_all, float* cbar_all, int m,
+    int degree) {
+  using L = tcp::Layout<P>;
+  constexpr int SA = L::SA;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mat = blockIdx.x / L::NC;
+  const int row0 = rank * BAND;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q4 = lane & 3;
 
-  // A = M / max(||M||_F, 1e-20), computed exactly as the forward computes
-  // it; V = herm(Y) in (vr, vi); (s, t) = (b_1, b_2)
+  float* Ar = smem;
+  float* Ai = Ar + L::PLANE;
+  float* ur = Ai + L::PLANE;
+  float* ui = ur + L::PLANE;
+  float* tr = ui + L::PLANE;
+  float* ti = tr + L::PLANE;
+  float* sr = ti + L::PLANE;
+  float* si = sr + L::PLANE;
+  float* stage = si + L::PLANE;
+  float* red = stage + 4 * L::SLICE;  // one partial per warp
+  float* slot = red + 8;              // [0]: ||M||_F^2 partial, [1]: trace partial
+
+  const size_t base = static_cast<size_t>(mat) * P * P;
+  const float* c = coeffs + static_cast<size_t>(mat) * degree;
+  float* cb = cbar_all + static_cast<size_t>(mat) * degree;
+
+  // element e of this thread's n-tile j: band row, column
+  auto row_of = [&](int e) { return g + 8 * (e >> 1); };
+  auto col_of = [&](int j, int e) { return warp * 16 + 8 * j + 2 * q4 + (e & 1); };
+
+  // ||M||_F over the cluster, summed in rank order (the same in every CTA)
   float ss = 0.f;
-  for (int e = threadIdx.x; e < PP; e += NT) ss += Mr[e] * Mr[e] + Mi[e] * Mi[e];
-  const float rinv = 1.f / fmaxf(sqrtf(block_sum<P>(sm, ss)), 1e-20f);
-  for (int e = threadIdx.x; e < PP; e += NT) {
-    const int et = (e % P) * P + e / P;
-    Ar[e] = Mr[e] * rinv;
-    Ai[e] = Mi[e] * rinv;
-    vr[e] = 0.5f * (Yr[e] + Yr[et]);
-    vi[e] = 0.5f * (Yi[e] - Yi[et]);
-    sr[e] = b1r_all[off + e];
-    si[e] = b1i_all[off + e];
-    tr[e] = b2r_all[off + e];
-    ti[e] = b2i_all[off + e];
+  for (int e = tid; e < BAND * P; e += L::NT) {
+    const float a = Mr_all[base + row0 * P + e], b = Mi_all[base + row0 * P + e];
+    ss += a * a + b * b;
   }
+  ss = warp_sum(ss);
+  if (lane == 0) red[warp] = ss;
   __syncthreads();
-  const float tr0 = real_trace<P>(sm, vr, m);
-  if (threadIdx.x == 0) cb[0] = tr0;
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < L::NC; ++w) s += red[w];
+    slot[0] = s;
+  }
+  cluster.sync();
+  float tot = 0.f;
+  for (int q = 0; q < L::NC; ++q) tot += *cluster.map_shared_rank(slot, q);
+  const float rinv = 1.f / fmaxf(sqrtf(tot), 1e-20f);
 
-  float cr[MT][MT], ci[MT][MT];
-  // Abar = V b_1
-  karatsuba<P, SPLIT>(sm, vr, vi, sr, si, T, cr, ci);
+  // this CTA's bands of A = M / ||M||_F, u = V = herm(Y) and t = b_1
+  for (int e = tid; e < BAND * P; e += L::NT) {
+    const int r = e / P, cc = e % P, gr = row0 + r;
+    const size_t ge = base + static_cast<size_t>(gr) * P + cc;
+    const size_t gt = base + static_cast<size_t>(cc) * P + gr;
+    const int li = r * SA + cc;
+    Ar[li] = Mr_all[ge] * rinv;
+    Ai[li] = Mi_all[ge] * rinv;
+    ur[li] = 0.5f * (Yr_all[ge] + Yr_all[gt]);
+    ui[li] = 0.5f * (Yi_all[ge] - Yi_all[gt]);
+    tr[li] = b1r_all[ge];
+    ti[li] = b1i_all[ge];
+  }
+  float abr[NPW][4], abi[NPW][4], vr[NPW][4], vi[NPW][4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < NPW; ++j)
 #pragma unroll
-    for (int jj = 0; jj < MT; ++jj) {
-      const int idx = (ty + TS * i) * P + tx + TS * jj;
-      ABr[idx] = cr[i][jj];
-      ABi[idx] = ci[i][jj];
-    }
-  // u = A V, v = -V (V's last reader was the product above, which ends with
-  // a barrier)
-  karatsuba<P, SPLIT>(sm, Ar, Ai, vr, vi, T, cr, ci);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int jj = 0; jj < MT; ++jj) {
-      const int idx = (ty + TS * i) * P + tx + TS * jj;
-      ur[idx] = cr[i][jj];
-      ui[idx] = ci[i][jj];
-      vr[idx] = -vr[idx];
-      vi[idx] = -vi[idx];
-    }
-  __syncthreads();
+    for (int e = 0; e < 4; ++e) abr[j][e] = abi[j][e] = vr[j][e] = vi[j][e] = 0.f;
 
-  for (int j = 1; j <= degree - 2; ++j) {
-    const float trj = real_trace<P>(sm, ur, m);
-    if (threadIdx.x == 0) cb[j] = trj;
-    // Abar += 2 u b_{j+1}; each thread updates only its own entries
-    karatsuba<P, SPLIT>(sm, ur, ui, tr, ti, T, cr, ci);
+  // Re tr u over this band's logical diagonal into slot[1] (warp 0)
+  auto band_trace = [&]() {
+    if (warp == 0) {
+      const int gr = row0 + lane;
+      float d = (lane < BAND && gr < m) ? ur[lane * SA + gr] : 0.f;
+      d = warp_sum(d);
+      if (lane == 0) slot[1] = d;
+    }
+  };
+  // the cluster's trace, summed in rank order, into cbar[j] (rank 0);
+  // between two cluster barriers
+  auto write_trace = [&](int j) {
+    if (rank == 0 && tid == 0) {
+      float s = 0.f;
+      for (int q = 0; q < L::NC; ++q) s += *cluster.map_shared_rank(slot + 1, q);
+      cb[j] = s;
+    }
+  };
+  cluster.sync();
+
+  const int last = degree >= 2 ? degree - 2 : 0;
+  for (int j = 0; j <= last; ++j) {
+    const bool rebuild = j >= 1 && j < degree - 2;  // (s, t) <- (t, herm(...))
+    const float alpha = j == 0 ? 1.f : 2.f;
+    band_trace();
+    // pass over t: P = u t (Abar += alpha P) and, when rebuilding,
+    // X = c_j I + 2 A t - s, written over s (each thread reads only the
+    // s entries it overwrites)
+    if (rebuild) {
+      CAcc acc[2][NPW];
+      const float* const lr[2] = {ur, Ar};
+      const float* const li[2] = {ui, Ai};
+      tcp::band_product<P, 2>(cluster, tr, ti, lr, li, stage, m, acc);
+      const float cj = c[j];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+      for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int idx = (ty + TS * i) * P + tx + TS * jj;
-        ABr[idx] += 2.f * cr[i][jj];
-        ABi[idx] += 2.f * ci[i][jj];
-      }
-    // (u, v) <- (v + 2 A u, -u)
-    karatsuba<P, SPLIT>(sm, Ar, Ai, ur, ui, T, cr, ci);
+        for (int e = 0; e < 4; ++e) {
+          abr[jj][e] += alpha * tcp::acc_re(acc[0][jj], e);
+          abi[jj][e] += alpha * tcp::acc_im(acc[0][jj], e);
+          const int r = row_of(e), cc = col_of(jj, e), idx = r * SA + cc;
+          const float d = (row0 + r == cc && cc < m) ? cj : 0.f;
+          sr[idx] = (d + 2.f * tcp::acc_re(acc[1][jj], e)) - sr[idx];
+          si[idx] = 2.f * tcp::acc_im(acc[1][jj], e) - si[idx];
+        }
+    } else {
+      CAcc acc[1][NPW];
+      const float* const lr[1] = {ur};
+      const float* const li[1] = {ui};
+      tcp::band_product<P, 1>(cluster, tr, ti, lr, li, stage, m, acc);
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+      for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int idx = (ty + TS * i) * P + tx + TS * jj;
+        for (int e = 0; e < 4; ++e) {
+          abr[jj][e] += alpha * tcp::acc_re(acc[0][jj], e);
+          abi[jj][e] += alpha * tcp::acc_im(acc[0][jj], e);
+        }
+    }
+    // pass over u: Q = A u
+    CAcc qa[1][NPW];
+    {
+      const float* const lr[1] = {Ar};
+      const float* const li[1] = {Ai};
+      tcp::band_product<P, 1>(cluster, ur, ui, lr, li, stage, m, qa);
+    }
+    cluster.sync();  // every read of u and t is done; X and the traces are visible
+    write_trace(j);
+    // (u, v) <- (v + alpha A u, -u); the next s waits in registers while
+    // the other CTAs read X from the s planes
+    float nsr[NPW][4], nsi[NPW][4];
+#pragma unroll
+    for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row_of(e), cc = col_of(jj, e), idx = r * SA + cc;
         const float u0r = ur[idx], u0i = ui[idx];
-        ur[idx] = vr[idx] + 2.f * cr[i][jj];
-        ui[idx] = vi[idx] + 2.f * ci[i][jj];
-        vr[idx] = -u0r;
-        vi[idx] = -u0i;
+        ur[idx] = vr[jj][e] + alpha * tcp::acc_re(qa[0][jj], e);
+        ui[idx] = vi[jj][e] + alpha * tcp::acc_im(qa[0][jj], e);
+        vr[jj][e] = -u0r;
+        vi[jj][e] = -u0i;
+        if (rebuild) {
+          // t <- herm(X): X^T's entry lies in the band of row cc, at column
+          // row0 + r
+          const float* xr = cluster.map_shared_rank(sr, cc / BAND);
+          const float* xi = cluster.map_shared_rank(si, cc / BAND);
+          const int tidx = (cc % BAND) * SA + row0 + r;
+          nsr[jj][e] = tr[idx];
+          nsi[jj][e] = ti[idx];
+          tr[idx] = 0.5f * (sr[idx] + xr[tidx]);
+          ti[idx] = 0.5f * (si[idx] - xi[tidx]);
+        } else if (j == 0) {  // (s, t) = (b_1, b_2)
+          const size_t ge = base + static_cast<size_t>(row0 + r) * P + cc;
+          nsr[jj][e] = b1r_all[ge];
+          nsi[jj][e] = b1i_all[ge];
+          tr[idx] = b2r_all[ge];
+          ti[idx] = b2i_all[ge];
+        }
       }
-    __syncthreads();
-    if (j == degree - 2) break;  // b_degree feeds nothing
-    // (s, t) <- (t, herm(c_j I + 2 A t - s)); each thread reads only the s
-    // entries it then overwrites, so s serves as hermitian_part's exchange
-    // plane, and the new t lands in the old s planes
-    karatsuba<P, SPLIT>(sm, Ar, Ai, tr, ti, T, cr, ci);
-    const float cj = c[j];
+    cluster.sync();  // the new u and t are visible; X and the traces are read
+    if (rebuild || j == 0) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+      for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int r = ty + TS * i, cc = tx + TS * jj;
-        const int idx = r * P + cc;
-        const float d = (r == cc && r < m) ? cj : 0.f;
-        cr[i][jj] = (d + 2.f * cr[i][jj]) - sr[idx];
-        ci[i][jj] = 2.f * ci[i][jj] - si[idx];
-      }
-    hermitian_part<P>(sr, si, cr, ci);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int idx = (ty + TS * i) * P + tx + TS * jj;
-        sr[idx] = cr[i][jj];
-        si[idx] = ci[i][jj];
-      }
-    __syncthreads();
-    float* x = sr;
-    sr = tr;
-    tr = x;
-    x = si;
-    si = ti;
-    ti = x;
+        for (int e = 0; e < 4; ++e) {
+          const int idx = row_of(e) * SA + col_of(jj, e);
+          sr[idx] = nsr[jj][e];
+          si[idx] = nsi[jj][e];
+        }
+    }
   }
   if (degree >= 2) {
-    const float trl = real_trace<P>(sm, ur, m);
-    if (threadIdx.x == 0) cb[degree - 1] = trl;
+    band_trace();
+    cluster.sync();
+    write_trace(degree - 1);
   }
+#pragma unroll
+  for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t ge = base + static_cast<size_t>(row0 + row_of(e)) * P + col_of(jj, e);
+      ABr_all[ge] = abr[jj][e];
+      ABi_all[ge] = abi[jj][e];
+    }
+  cluster.sync();  // no CTA leaves while another still reads its slots
+}
+
+template <int P>
+int launch_cheb_bwd(const float* Mr, const float* Mi, const float* coeffs, const float* Yr,
+                    const float* Yi, const float* b1r, const float* b1i, const float* b2r,
+                    const float* b2i, float* ABr, float* ABi, float* cbar, int B, int m,
+                    int degree, cudaStream_t st) {
+  using L = tcp::Layout<P>;
+  const int bytes = bwd_smem_floats<P>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(cheb_bwd_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * L::NC);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cheb_bwd_kernel<P>, Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i,
+                           ABr, ABi, cbar, m, degree);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int occupancy_cheb_bwd(int* clusters, int* smem_bytes, int* threads) {
+  using L = tcp::Layout<P>;
+  const int bytes = bwd_smem_floats<P>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(cheb_bwd_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(132 * L::NC);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, cheb_bwd_kernel<P>, &cfg);
+  *smem_bytes = bytes;
+  *threads = L::NT;
+  return static_cast<int>(err);
 }
 
 }  // namespace admmk
@@ -207,30 +324,31 @@ __global__ void __launch_bounds__(NT) cheb_bwd_kernel(
 // output's cotangent Y, zero-padded past the logical side m; coeffs:
 // (B, degree) floats; b1r, b1i, b2r, b2i: the forward's final carries as
 // cheb_filter_launch writes them; ABr, ABi: (B, P, P) planes of Abar,
-// written; cbar: (B, degree) floats, written; scratch: B * 11 * P * P
-// floats.  three_pass selects the split-bf16 products.  Returns the
-// launch's cudaError_t.
+// written; cbar: (B, degree) floats, written.  Returns the launch's
+// cudaError_t.
 extern "C" int cheb_bwd_launch(const float* Mr, const float* Mi, const float* coeffs,
                                const float* Yr, const float* Yi, const float* b1r,
                                const float* b1i, const float* b2r, const float* b2i,
-                               float* ABr, float* ABi, float* cbar, float* scratch, int B, int P,
-                               int m, int degree, int three_pass, void* stream) {
+                               float* ABr, float* ABi, float* cbar, int B, int P, int m,
+                               int degree, void* stream) {
   using namespace admmk;
   if (B <= 0 || degree < 1 || m < 1 || m > P) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ADMMK_CHEB_BWD(PS, SPL)                                                               \
-  cheb_bwd_kernel<PS, SPL><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, \
-                                             ABi, cbar, scratch, m, degree)
-  if (P == 112 && !three_pass)
-    ADMMK_CHEB_BWD(112, false);
-  else if (P == 112)
-    ADMMK_CHEB_BWD(112, true);
-  else if (P == 128 && !three_pass)
-    ADMMK_CHEB_BWD(128, false);
-  else if (P == 128)
-    ADMMK_CHEB_BWD(128, true);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-#undef ADMMK_CHEB_BWD
-  return static_cast<int>(cudaGetLastError());
+  if (P == 112)
+    return launch_cheb_bwd<112>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B,
+                                m, degree, st);
+  if (P == 128)
+    return launch_cheb_bwd<128>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B,
+                                m, degree, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K6's residency at side P: the clusters the card holds at once, each
+// CTA's dynamic shared memory in bytes and its threads.  Returns a
+// cudaError_t.
+extern "C" int cheb_bwd_occupancy(int P, int* clusters, int* smem_bytes, int* threads) {
+  using namespace admmk;
+  if (P == 112) return occupancy_cheb_bwd<112>(clusters, smem_bytes, threads);
+  if (P == 128) return occupancy_cheb_bwd<128>(clusters, smem_bytes, threads);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

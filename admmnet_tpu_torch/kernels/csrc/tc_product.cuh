@@ -1,0 +1,252 @@
+// Tensor-core complex products at fp32-faithful accuracy, for kernels that
+// keep a matrix's planes on chip across a thread-block cluster.
+//
+// Layout: a P x P complex matrix (P = 112 or 128, zero-padded past its
+// logical side) is split into P / 16 row bands of 16 rows; CTA q of a
+// cluster of P / 16 CTAs holds band q of every plane in its own shared
+// memory, each band a 16 x P float array with row stride SA.  A product
+// C = L R of a local left band L (16 x P) and a right operand R held across
+// the cluster needs R's K rows band by band: band q is read from CTA q
+// through distributed shared memory (cluster.map_shared_rank) into a local
+// double buffer (row stride SB), the next band's loads in flight while the
+// current one feeds the tensor cores.  CTA r starts with its own band and
+// walks the others in rank order from there, so in each round every CTA
+// serves one reader.
+//
+// Products: mma.sync m16n8k8 TF32 with fp32 accumulation, in the 3xTF32
+// split x = hi + lo, hi = tf32_rn(x), lo = x - hi (exact; the tensor core
+// reads its top 19 bits), x y ~ lo_x hi_y + hi_x lo_y + hi_x hi_y: the
+// dropped lo_x lo_y term and lo's truncation leave ~2^-21 relative per
+// product, fp32's level.  Each 8-deep step's sum starts fresh and is added
+// to the running sum in fp32 (the tensor cores truncate what they
+// accumulate).  A complex product is the 3-product Karatsuba form t1 = Lr
+// Rr, t2 = Li Ri, t3 = (Lr + Li)(Rr + Ri), Cr = t1 - t2, Ci = t3 - t1 - t2;
+// the operand sums are formed in fp32 before the split, so no temporary
+// plane is needed and the three real products accumulate in registers.
+//
+// Warps: P / 16; warp w owns output columns [16 w, 16 w + 16) of the band,
+// two 8-column n-tiles, for every product.  Fragment and accumulator
+// layouts are PTX's for m16n8k8 .tf32: with g = lane / 4 and q = lane % 4,
+// a = {L[g][k+q], L[g+8][k+q], L[g][k+q+4], L[g+8][k+q+4]}, b = {R[k+q][n+g],
+// R[k+q+4][n+g]}, d = {C[g][n+2q], C[g][n+2q+1], C[g+8][n+2q],
+// C[g+8][n+2q+1]}.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace tcp {
+
+namespace cg = cooperative_groups;
+
+constexpr int BAND = 16;  // rows of a band: the mma's M
+constexpr int NPW = 2;    // 8-column n-tiles per warp
+
+template <int P>
+struct Layout {
+  static constexpr int NC = P / BAND;         // CTAs (bands) per cluster
+  static constexpr int NT = 32 * NC;          // threads per CTA: one warp per 16 columns
+  static constexpr int SA = P + 4;            // band row stride: conflict-free A fragments
+  static constexpr int SB = P + 8;            // staged row stride: conflict-free B fragments
+  static constexpr int PLANE = BAND * SA;     // floats of one band plane
+  static constexpr int SLICE = BAND * SB;     // floats of one staged band
+  static constexpr int NV = 2 * BAND * P / 4 / NT;  // float4 per thread per staged band
+  static_assert(SA % 32 == 4 || SA % 32 == 20, "A-fragment reads would conflict");
+  static_assert(SB % 32 == 8 || SB % 32 == 24, "B-fragment reads would conflict");
+  static_assert(NV * NT * 4 == 2 * BAND * P, "staging does not tile the band");
+};
+
+// tf32_rn(x), ties away from zero, by integer ops on the full-rate pipes
+// (cvt.rna.tf32.f32 lowers to a longer compare-and-select sequence): add
+// half of the dropped 13 bits' range to the magnitude, then clear them
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+struct AFrag {
+  uint32_t hi[4], lo[4];
+};
+struct BFrag {
+  uint32_t hi[2], lo[2];
+};
+
+// x = hi + lo exactly; the tensor core reads lo's top 19 bits (truncation,
+// as CUTLASS's 3xTF32 passes its small part), 2^-21 |x| at most
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (the accumulator input is zero)
+__device__ __forceinline__ void mma_new(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// d = a b in 3xTF32, the small cross terms first
+__device__ __forceinline__ void mma3_new(float (&d)[4], const AFrag& a, const BFrag& b) {
+  mma_new(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+// Fragments of a complex operand: real part, imaginary part, their sum.
+struct CAFrag {
+  AFrag r, i, s;
+};
+struct CBFrag {
+  BFrag r, i, s;
+};
+// Karatsuba accumulators of one complex n-tile.
+struct CAcc {
+  float t1[4], t2[4], t3[4];
+};
+
+__device__ __forceinline__ void zero(CAcc& c) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c.t1[e] = c.t2[e] = c.t3[e] = 0.f;
+}
+
+// acc += part in IEEE fp32 (round to nearest).  The tensor cores truncate
+// the sum they accumulate; folding each 8-deep step's fresh sum this way
+// keeps the truncation to one step's partial sum, not the running one
+// (which carried ~10x fp32's error through the backward's 46 steps).
+__device__ __forceinline__ void fold(CAcc& acc, const CAcc& part) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc.t1[e] += part.t1[e];
+    acc.t2[e] += part.t2[e];
+    acc.t3[e] += part.t3[e];
+  }
+}
+
+// (Cr, Ci) of element e from the Karatsuba accumulators
+__device__ __forceinline__ float acc_re(const CAcc& c, int e) { return c.t1[e] - c.t2[e]; }
+__device__ __forceinline__ float acc_im(const CAcc& c, int e) { return c.t3[e] - c.t1[e] - c.t2[e]; }
+
+// Left fragment at columns [k0, k0 + 8) of a band plane pair.
+template <int SA>
+__device__ __forceinline__ void load_a(CAFrag& f, const float* Lr, const float* Li, int k0,
+                                       int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[4] = {g * SA + k0 + q, (g + 8) * SA + k0 + q, g * SA + k0 + q + 4,
+                      (g + 8) * SA + k0 + q + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr = Lr[idx[e]], xi = Li[idx[e]];
+    split(xr, f.r.hi[e], f.r.lo[e]);
+    split(xi, f.i.hi[e], f.i.lo[e]);
+    split(xr + xi, f.s.hi[e], f.s.lo[e]);
+  }
+}
+
+// Right fragment at rows [k0, k0 + 8), columns [n0, n0 + 8) of a staged block.
+template <int SB>
+__device__ __forceinline__ void load_b(CBFrag& f, const float* Sr, const float* Si, int k0, int n0,
+                                       int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[2] = {(k0 + q) * SB + n0 + g, (k0 + q + 4) * SB + n0 + g};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float xr = Sr[idx[e]], xi = Si[idx[e]];
+    split(xr, f.r.hi[e], f.r.lo[e]);
+    split(xi, f.i.hi[e], f.i.lo[e]);
+    split(xr + xi, f.s.hi[e], f.s.lo[e]);
+  }
+}
+
+// c = the Karatsuba products of one 8-deep step, fresh
+__device__ __forceinline__ void karatsuba_mma(CAcc& c, const CAFrag& a, const CBFrag& b) {
+  mma3_new(c.t1, a.r, b.r);
+  mma3_new(c.t2, a.i, b.i);
+  mma3_new(c.t3, a.s, b.s);
+}
+
+// C_l = L_l R for NL local left bands (Lr[l], Li[l]: band planes in this
+// CTA's shared memory) and the right operand R whose band q lies in CTA q's
+// planes at the offsets of this CTA's (Rr, Ri).  Only the first ceil(m / 16)
+// bands of R are read (the rest are zero padding).  acc[l][j] receives
+// n-tile j of this warp's columns of C_l.  stage: 4 SLICE floats (two
+// buffers of two planes).  Every thread of the CTA must call it; it starts
+// with a barrier, so the caller may rewrite the stage right before, and it
+// leaves the left and right planes untouched.
+template <int P, int NL>
+__device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* Rr,
+                                             float* Ri, const float* const (&Lr)[NL],
+                                             const float* const (&Li)[NL], float* stage, int m,
+                                             CAcc (&acc)[NL][NPW]) {
+  using L = Layout<P>;
+  constexpr int Q4 = P / 4;  // float4 per band row
+  const int nbands = (m + BAND - 1) / BAND;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) zero(acc[l][j]);
+  const int rank = static_cast<int>(cluster.block_rank());
+  float4 buf[L::NV];
+  auto fetch = [&](int q) {  // this CTA's own band through its local address
+    const float* rr = q == rank ? Rr : cluster.map_shared_rank(Rr, q);
+    const float* ri = q == rank ? Ri : cluster.map_shared_rank(Ri, q);
+#pragma unroll
+    for (int v = 0; v < L::NV; ++v) {
+      const int e = tid + v * L::NT;
+      const int pl = e / (BAND * Q4), rem = e % (BAND * Q4);
+      buf[v] = *reinterpret_cast<const float4*>((pl ? ri : rr) + (rem / Q4) * L::SA +
+                                                4 * (rem % Q4));
+    }
+  };
+  auto put = [&](float* st) {
+#pragma unroll
+    for (int v = 0; v < L::NV; ++v) {
+      const int e = tid + v * L::NT;
+      const int pl = e / (BAND * Q4), rem = e % (BAND * Q4);
+      *reinterpret_cast<float4*>(st + pl * L::SLICE + (rem / Q4) * L::SB + 4 * (rem % Q4)) =
+          buf[v];
+    }
+  };
+  // bands in the order r, r + 1, ..., wrapping at nbands
+  const int first = rank % nbands;
+  auto band = [&](int i) { return first + i < nbands ? first + i : first + i - nbands; };
+  __syncthreads();  // the previous reader of the stage is done
+  fetch(band(0));
+  for (int i = 0; i < nbands; ++i) {
+    const int q = band(i);
+    float* st = stage + (i & 1) * 2 * L::SLICE;
+    put(st);
+    __syncthreads();
+    if (i + 1 < nbands) fetch(band(i + 1));
+#pragma unroll
+    for (int kk = 0; kk < BAND; kk += 8) {
+      CBFrag b[NPW];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+        load_b<L::SB>(b[j], st, st + L::SLICE, kk, warp * 16 + 8 * j, lane);
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        CAFrag a;
+        load_a<L::SA>(a, Lr[l], Li[l], q * BAND + kk, lane);
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          CAcc part;
+          karatsuba_mma(part, a, b[j]);
+          fold(acc[l][j], part);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tcp

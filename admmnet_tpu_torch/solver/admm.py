@@ -10,7 +10,9 @@ The iteration, per active instance:
 
 ``admm_solve_fixed`` runs a fixed number of iterations.  Its ``fused_fast``
 and ``fused_exact`` modes run the whole solve in the fused kernel
-(``kernels.fused_admm_fast``); ``polar`` and ``polar_fast`` run a Python
+(``kernels.fused_admm_fast``) up to a lifted side n + 1 of 128; above it
+they warn and take the loop below with ``polar_fast`` or ``polar``, as the
+JAX package does; ``polar`` and ``polar_fast`` run a Python
 loop whose G-step is the polar kernel (``kernels.polar``); ``eigh``,
 ``newton_schulz`` and ``ref_identity`` are plain torch.  Every mode runs on
 the device of its inputs: a CUDA input launches the kernels, a CPU input
@@ -26,7 +28,9 @@ Stopping after >= min_iter iterations when
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -216,13 +220,30 @@ def fused_kernel_options(opts: ADMMOptions) -> dict:
 
 def admm_solve_fixed(y, b, sigma, num_iters: int, lambda_val: float = 1.0,
                      opts: Optional[ADMMOptions] = None) -> torch.Tensor:
-    """Run exactly ``num_iters`` iterations (no convergence checks); phi."""
+    """Run exactly ``num_iters`` iterations (no convergence checks); phi.
+
+    ``fused_fast`` / ``fused_exact`` run the fused solve on the batch
+    flattened to one axis (the JAX package falls back to the loop for a
+    batch of rank > 1 instead; the port's kernel takes any flattened
+    batch).  At a lifted side n + 1 above 128 they warn and run the loop
+    with ``g_update="polar_fast"`` (``"polar"`` for fused_exact), as the
+    JAX package does; the kernel's planes hold at most 128.
+    """
     opts = opts or ADMMOptions()
     y = torch.as_tensor(y).to(COMPLEX)
     b = torch.as_tensor(b).to(COMPLEX).to(y.device)
     batch = y.shape[:-1]
     n = y.shape[-1]
     dev = y.device
+
+    if opts.g_update in ("fused_fast", "fused_exact") and n + 1 > MAX_SIDE:
+        fallback = "polar" if opts.g_update == "fused_exact" else "polar_fast"
+        warnings.warn(
+            f"g_update={opts.g_update!r} falling back to the scan path with "
+            f"g_update={fallback!r}: lifted size {n + 1} > {MAX_SIDE}",
+            stacklevel=2,
+        )
+        opts = dataclasses.replace(opts, g_update=fallback)
 
     if opts.g_update in ("fused_fast", "fused_exact"):
         if opts.phi_update != "diag":

@@ -9,6 +9,8 @@ device (data parallelism is not ported):
   add 1e-6 to the norm);
 - the SGDR learning rate evaluated at the number of updates made before
   each one, as optax does;
+- minibatches from the native prefetch loader when it builds, else the
+  numpy iterator, as the JAX trainer chooses (the two orders differ);
 - best-on-validation checkpoints in the JAX package's format, resume,
   ``reset_best``, early stop, the best checkpoint reloaded for the test
   metrics (count-based precision/recall/F1 and the position-matched
@@ -34,6 +36,7 @@ import torch
 
 from admmnet_tpu_torch.core.config import ModelConfig, TrainConfig
 from admmnet_tpu_torch.core.convert import params_from_jax, params_to_jax
+from admmnet_tpu_torch.data import loader
 from admmnet_tpu_torch.data.generator import iterate_batches
 from admmnet_tpu_torch.models import ADMMNet, PhiEstADMMNet
 from admmnet_tpu_torch.ops.atoms import COMPLEX
@@ -303,6 +306,16 @@ def _graft_params(tree, donor, log_fn):
     return {**tree, **grafted}
 
 
+def _batches(data, batch_size: int, shuffle: bool, seed: int):
+    """Minibatch stream, chosen as the JAX trainer chooses it: the native
+    prefetch loader (``data/loader.py``) when its library builds, else the
+    numpy iterator.  The two shuffle differently; the native one is JAX's
+    native order bit for bit."""
+    if loader.native_available():
+        return loader.PrefetchLoader(data, batch_size, shuffle=shuffle, seed=seed)
+    return iterate_batches(data, batch_size, shuffle=shuffle, seed=seed)
+
+
 def _prf(tp, fp, fn):
     precision = tp / (tp + fp) if tp + fp else 0.0
     recall = tp / (tp + fn) if tp + fn else 0.0
@@ -316,7 +329,7 @@ def evaluate_split(eval_step, data, batch_size: int, device, mode: str) -> Dict[
     "phi" mode)."""
     losses, tau_es, f_es = [], [], []
     sums = dict.fromkeys(("tp", "fp", "fn", "mtp", "mfp", "mfn", "m_tau_sse", "m_f_sse"), 0.0)
-    for batch in iterate_batches(data, batch_size, shuffle=False, seed=0):
+    for batch in _batches(data, batch_size, shuffle=False, seed=0):
         total, m = eval_step(batch_to_device(batch, device))
         losses.append(float(total))
         if mode == "e2e":
@@ -421,14 +434,14 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
         epochs_run = epoch + 1
         t_ep = time.time()
         tr_losses = []
-        for batch in iterate_batches(train_data, tcfg.batch_size, shuffle=True,
-                                     seed=tcfg.seed + epoch):
+        for batch in _batches(train_data, tcfg.batch_size, shuffle=True,
+                              seed=tcfg.seed + epoch):
             tr_losses.append(train_step(batch_to_device(batch, device), step))
             step += 1
         tr_loss = float(torch.stack(tr_losses).double().mean()) if tr_losses else 0.0
 
         va_losses, tau_es, f_es = [], [], []
-        for batch in iterate_batches(val_data, tcfg.batch_size, shuffle=False, seed=0):
+        for batch in _batches(val_data, tcfg.batch_size, shuffle=False, seed=0):
             total, m = eval_step(batch_to_device(batch, device))
             va_losses.append(float(total))
             if mode == "e2e":

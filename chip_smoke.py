@@ -6,15 +6,18 @@ card, after building the CUDA kernels from ``admmnet_tpu_torch/kernels/csrc``
 and holding each kernel against its plain PyTorch version:
 
 - the classical detection pipeline (phases 3-9): anchor / random-SNR scenes
-  -> batched ADMM solve -> peak list -> detection score;
+  -> batched ADMM solve -> peak list -> detection score, and the fused
+  modes' fallback to the per-step loop above a lifted side of 128 (phase 8);
 - the learned pipeline (phases 10-13): the committed net-3 checkpoint
   (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
   random-SNR scenes, held against the JAX package's golden output;
 - training (phases 14-17): the Clenshaw training forward K5 and reversible
-  backward K6 against their plain versions, three recipe steps of net-3
+  backward K6 (tensor-core products; phase 2 also counts its HMMA
+  instructions) against their plain versions, three recipe steps of net-3
   against the JAX package's golden steps, then ``generate_dataset`` and
   ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
-  on the card, scored against the committed net-3 checkpoint;
+  on the card through the native minibatch loader, scored against the
+  committed net-3 checkpoint;
 - the other whole-solve routes (phases 18-23): the lists layout K3 and
   K2's unfolded carry against their plain versions and end to end as the
   escape hatch ``ADMMOptions(fused_layout="lists", ...)`` (anchor and
@@ -86,6 +89,7 @@ HATCH_DIFF_ITERS = 15
 # of bf16-valued operands accumulated in fp32), and device memory bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Tolerances, with their reasons:
@@ -154,9 +158,10 @@ CLI_RMSE_TOL = 1e-3
 #   inputs, and K6's Hermitian-projected Mbar vs torch autograd through the
 #   plain forward, max per-matrix relative error: fp32 sums in another
 #   order through 47 forward steps and 46 rebuilt ones.
-#   ~10x the measured on an H100: carries 1.2e-5; K6 Mbar 1.1e-6, cbar
-#   4.3e-6 (three_pass 1.9e-6 / 4.5e-6; the tolerance covers both); vs
-#   autograd 8.8e-7 / 4.7e-6.
+#   ~10x the measured on an H100 with K6's fp32 SIMT products: carries
+#   1.2e-5; K6 Mbar 1.1e-6, cbar 4.3e-6; vs autograd 8.8e-7 / 4.7e-6.  K6's
+#   3xTF32 tensor-core products (~2^-22 per product) are held to the same
+#   limits.
 K5_PLAIN_TOL = 1e-4
 K6_PLAIN_TOL = {"Mbar": 2e-5, "cbar": 5e-5}
 K6_AUTOGRAD_TOL = 5e-5
@@ -401,6 +406,34 @@ class Smoke:
             for ln in text.splitlines():
                 if "registers" in ln or "spill" in ln:
                     log(f"[2 build]   {name} ptxas {ln.strip()}")
+        from admmnet_tpu_torch.kernels.cheb_filter import cheb_bwd_occupancy
+
+        for P in (112, 128):
+            occ = cheb_bwd_occupancy(P)
+            log(f"[2 build] K6 at P={P}: clusters of {P // 16} CTAs x {occ['threads']} threads, "
+                f"{occ['smem_bytes']} B dynamic shared memory per CTA, {occ['clusters']} "
+                f"clusters resident on the card")
+            check(occ["clusters"] > 0, f"K6 at P={P} cannot be resident")
+
+    def k6_sass(self):
+        """K6's products reach the tensor cores: HMMA instructions in its SASS."""
+        import re
+        import shutil
+
+        from admmnet_tpu_torch.kernels import _build
+
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        found = {}
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = block.split("\n", 1)[0].strip()
+            if "cheb_bwd_kernel" in name:
+                found[name] = (block.count("HMMA"), block.count("LDL"), block.count("STL"))
+        for name, (hmma, ldl, stl) in sorted(found.items()):
+            log(f"[2 K6 SASS] {name}: {hmma} HMMA, {ldl} LDL / {stl} STL (local memory)")
+        check(len(found) == 2 and all(h > 0 for h, _, _ in found.values()),
+              "K6's SASS has no tensor-core (HMMA) instruction")
 
     # 3 -------------------------------------------------------------------
     def k1_vs_plain(self):
@@ -555,6 +588,37 @@ class Smoke:
             log(f"[7 random gate {label}] F1 {f1[label]:.4f} >= eigh control "
                 f"{f1['eigh']:.4f} - {F1_BAND}: {ok}")
             check(ok, f"random-scene gate ({label})")
+
+    # 8 -------------------------------------------------------------------
+    def fused_fallback(self):
+        """Above a lifted side of 128 the fused modes warn and run the loop
+        with polar_fast / polar, as the JAX package does: no K2 launch."""
+        import warnings
+
+        from admmnet_tpu_torch.core.config import ADMMOptions
+        from admmnet_tpu_torch.kernels import fused_admm_fast
+        from admmnet_tpu_torch.solver import admm_solve_fixed
+
+        rng = np.random.default_rng(0)
+        n = 144
+        y = (rng.normal(size=(4, n)) + 1j * rng.normal(size=(4, n))).astype(np.complex64)
+        b = np.exp(2j * np.pi * rng.uniform(size=(4, n))).astype(np.complex64)
+        s = rng.uniform(0.05, 0.2, size=4).astype(np.float32)
+        y, b, s = to_dev(self.dev, y, b, s)
+        for g, fallback in (("fused_fast", "polar_fast"), ("fused_exact", "polar")):
+            before = fused_admm_fast.launches.count
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                phi = admm_solve_fixed(y, b, s, 5, 1.0, ADMMOptions(g_update=g))
+            said = [str(w.message) for w in caught]
+            ref = admm_solve_fixed(y, b, s, 5, 1.0, ADMMOptions(g_update=fallback))
+            same = torch.equal(phi, ref)
+            log(f"[8 fallback {g}] n={n} (lifted 145 > 128), 4 instances x 5 iters: warned "
+                f"{said}; K2 launches {fused_admm_fast.launches.count - before}; phi equals the "
+                f"{fallback} loop's bitwise: {same}")
+            check(any(f"g_update={fallback!r}: lifted size 145 > 128" in w for w in said)
+                  and fused_admm_fast.launches.count == before and same,
+                  f"{g} above the kernel's side did not fall back to {fallback}")
 
     # 9 -------------------------------------------------------------------
     def timings(self):
@@ -820,24 +884,24 @@ class Smoke:
         check(bitwise, "K5's output differs from K4's")
         check(e5 < K5_PLAIN_TOL and pad_ok, "K5's carries disagree with the plain version")
 
-        worst = 0.0
-        for three_pass in (False, True):
-            Abar, cbar = kc.cheb_bwd(M, c, carries, Y, D, three_pass)
-            Ap, cp = kc.cheb_bwd_plain(M, c, cropped, Y, D, three_pass)
-            Mb, Mbp = kc.normalization_backward(M, Abar), kc.normalization_backward(M, Ap)
-            torch.cuda.synchronize()
-            eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
-            ec = float(rel_err(cbar, cp).max())
-            finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
-                torch.all(torch.isfinite(cbar)))
-            if not three_pass:
-                worst = max(float((Mb - Mbp).abs().max()), float((cbar - cp).abs().max()))
-            log(f"[14 K6 vs plain] three_pass={three_pass}: Mbar max per-matrix rel err "
-                f"{eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar {ec:.3e} (tol "
-                f"{K6_PLAIN_TOL['cbar']:g}); finite: {finite}")
-            check(finite and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
-                  f"K6 (three_pass={three_pass}) disagrees with its plain version")
-        self.kernels["K6"] = {"max_abs_err": worst}
+        ABr, ABi, cbar = kc.cheb_bwd_planes(M, c, carries, Y, D)
+        Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m])
+        Ap, cp = kc.cheb_bwd_plain(M, c, cropped, Y, D)
+        Mb, Mbp = kc.normalization_backward(M, Abar), kc.normalization_backward(M, Ap)
+        torch.cuda.synchronize()
+        eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
+        ec = float(rel_err(cbar, cp).max())
+        finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
+            torch.all(torch.isfinite(cbar)))
+        pad_ok = all(bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
+                     for x in (ABr, ABi))
+        self.kernels["K6"] = {"max_abs_err": max(float((Abar - Ap).abs().max()),
+                                                 float((cbar - cp).abs().max()))}
+        log(f"[14 K6 vs plain] 3xTF32 tensor-core products: Mbar max per-matrix rel err "
+            f"{eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar {ec:.3e} (tol "
+            f"{K6_PLAIN_TOL['cbar']:g}); finite: {finite}; Abar padding exactly 0: {pad_ok}")
+        check(finite and pad_ok and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
+              "K6 disagrees with its plain version")
 
         # through autograd: cheb_filter_matrices (K5 + K6) vs the plain forward
         grads = []
@@ -948,6 +1012,12 @@ class Smoke:
             f"{init_res['test_loss']:.6f} (matched F1 {init_res['matched_f1']:.4f}), committed "
             f"{ref_res['test_loss']:.6f}; share of the init-to-committed gap closed {closed:.4f} "
             f"(need >= {TRAIN_LOSS_GAP_CLOSED})")
+        from admmnet_tpu_torch.data import loader
+
+        built = loader.native_available() and loader.library_path().exists()
+        log(f"[16 loader] the port's native minibatch loader built on this machine "
+            f"({loader.library_path().name}) and drew the epochs: {built}")
+        check(built, "training: the native loader did not build")
         check(all(np.isfinite(hist["train_loss"])) and fell, "training: val loss did not fall")
         check(res["matched_f1"] >= ref_res["matched_f1"] - TRAIN_F1_BAND,
               "training: matched test F1 below the committed checkpoint's")
@@ -979,11 +1049,18 @@ class Smoke:
             k6 = cuda_ms(lambda: kc.cheb_bwd(M, c, carries, Y, D), reps=3)
             k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D), reps=3)
             b5, by5 = bound(cheb_flops(B), cheb_bytes(B) + B * 4 * 101 * 101 * 4)
-            b6, by6 = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
+            # K6's products run on the tensor cores in 3xTF32: three TF32
+            # products per useful one; the fp32 SIMT bound is kept beside it
+            b6, by6 = bound(0.0, cheb_bwd_bytes(B))
+            b6 = max(b6, 3 * cheb_bwd_flops(B) / PEAK_TF32 * 1e3)
+            by6 = "operations" if b6 > cheb_bwd_bytes(B) / PEAK_BYTES * 1e3 else "bytes"
+            b6s, _ = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
             log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.2f} ms, plain {k5p:.2f} ms; "
                 f"bound {b5:.2f} ms ({by5}) {tag}")
-            log(f"[17 time K6] B={B}: kernel {k6:.2f} ms ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
-                f"TFLOP/s useful), plain {k6p:.2f} ms; bound {b6:.2f} ms ({by6}) {tag}")
+            log(f"[17 time K6] B={B}: kernel {k6:.3f} ms ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
+                f"TFLOP/s useful), plain {k6p:.2f} ms; 3xTF32 tensor-core bound {b6:.3f} ms "
+                f"({by6}; {b6 / k6:.1%} of it), fp32 SIMT bound {b6s:.2f} ms ({b6s / k6:.1%} "
+                f"of it) {tag}")
             if B == 256:
                 self.kernels["K5"].update(ms=k5, plain_ms=k5p, bound_ms=b5, bound_by=by5,
                                           library_ms=None)
@@ -1281,6 +1358,7 @@ def main() -> int:
     sm = Smoke()
     sm.device()
     sm.build()
+    sm.k6_sass()
     sm.k1_vs_plain()
     sm.k2_vs_plain()
     # 8: the main path's launches are counted from here to the end of phase 7
@@ -1293,6 +1371,7 @@ def main() -> int:
     log(f"[8 launches] main path (phases 5-7): K1 polar {counts['K1']}, "
         f"K2 fused {counts['K2']} (each must be > 0)")
     check(counts["K1"] > 0 and counts["K2"] > 0, "a kernel of the main path never launched")
+    sm.fused_fallback()
     sm.timings()
     sm.k4_vs_plain()
     # the learned main path's launches are counted over phase 11

@@ -197,7 +197,7 @@ def test_cheb_filter_fn_gradcheck_float64():
     X = torch.from_numpy(rng.normal(size=(2, 6, 6)) + 1j * rng.normal(size=(2, 6, 6)))
     c = torch.from_numpy(rng.normal(size=(2, 6)) * 0.3)
     assert torch.autograd.gradcheck(
-        lambda X, c: kc.ChebFilterFn.apply(_herm_t(X), c, 6, False),
+        lambda X, c: kc.ChebFilterFn.apply(_herm_t(X), c, 6),
         (X.requires_grad_(True), c.requires_grad_(True)))
 
 

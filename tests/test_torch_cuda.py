@@ -172,16 +172,35 @@ def test_cheb_fwd_kernel_is_k4_with_carries(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("three_pass", [False, True])
-def test_cheb_bwd_kernel_matches_plain(cuda, three_pass):
+def test_cheb_bwd_kernel_matches_plain(cuda):
     """K6 vs ``cheb_bwd_plain`` on the same inputs (K5's carries)."""
     M, c, Y = _cheb_inputs(cuda)
     _, _, carries = kc.cheb_fwd_planes(M, c, 48)
     before = kc.bwd_launches.count
-    Abar, cbar = kc.cheb_bwd(M, c, carries, Y, 48, three_pass)
+    Abar, cbar = kc.cheb_bwd(M, c, carries, Y, 48)
     assert kc.bwd_launches.count == before + 1
-    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :101, :101] for x in carries], Y, 48, three_pass)
+    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :101, :101] for x in carries], Y, 48)
     assert _rel(Abar, Ap) < 1e-3
+    assert _rel(cbar, cp) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [24, 101])
+@pytest.mark.parametrize("degree", [2, 3, 48])
+def test_cheb_bwd_kernel_edges(cuda, degree, m):
+    """K6 at the loop's bounds (degree 2: no step but the first; 3: no
+    rebuild), at a side that leaves whole bands of the cluster as padding
+    (m = 24) and at the GLayer's, with a zero matrix: vs its plain version,
+    finite, and every padded row and column of Abar exactly 0."""
+    M, c, Y = _cheb_inputs(cuda, B=8, m=m, degree=degree, seed=degree)
+    M[-1] = 0
+    _, _, carries = kc.cheb_fwd_planes(M, c, degree)
+    ABr, ABi, cbar = kc.cheb_bwd_planes(M, c, carries, Y, degree)
+    for x in (ABr, ABi):
+        assert bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
+        assert bool(torch.all(torch.isfinite(x)))
+    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :m, :m] for x in carries], Y, degree)
+    assert _rel(torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]), Ap) < 1e-3
     assert _rel(cbar, cp) < 1e-3
 
 

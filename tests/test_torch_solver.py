@@ -102,3 +102,25 @@ def test_fused_modes_reject_the_dense_phi_update():
     with pytest.raises(NotImplementedError, match="phi_update"):
         admm_solve_fixed(y, b, s, 2, 1.0,
                          ADMMOptions(g_update="fused_fast", phi_update="ref_dense"))
+
+
+@pytest.mark.parametrize("g_update", ["fused_fast", "fused_exact"])
+def test_fused_modes_fall_back_above_the_kernel_side(g_update):
+    """n = 144 (Nb = Nd = 12) lifts to 145 > 128, beyond the fused kernel's
+    planes: the port warns with the JAX package's message and runs the loop
+    with polar_fast (polar for fused_exact), as JAX's fallback does.
+    Tolerance 1e-5 relative: both run the plain schedule in fp32 with sums
+    in another order (measured 1.7e-6 / 2.8e-6)."""
+    rng = np.random.default_rng(0)
+    n = 144
+    y = (rng.normal(size=(4, n)) + 1j * rng.normal(size=(4, n))).astype(np.complex64)
+    b = np.exp(2j * np.pi * rng.uniform(size=(4, n))).astype(np.complex64)
+    s = rng.uniform(0.05, 0.2, size=4).astype(np.float32)
+    o = JOptions(g_update=g_update)
+    with pytest.warns(UserWarning, match="falling back"):
+        pj = np.asarray(jax_fixed(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), 5, 1.0, o))
+    fallback = "polar" if g_update == "fused_exact" else "polar_fast"
+    with pytest.warns(UserWarning, match=f"g_update={fallback!r}: lifted size 145 > 128"):
+        pt = admm_solve_fixed(*_t(y, b, s), 5, 1.0, options_from_jax(o))
+    assert pt.shape == (4, n) and bool(torch.all(torch.isfinite(torch.view_as_real(pt))))
+    assert _rel(pt.numpy(), pj) < 1e-5

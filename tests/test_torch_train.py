@@ -267,6 +267,7 @@ def test_train_cli_matches_jax_trainer(tiny_dataset, tmp_path, monkeypatch):
     from admmnet_tpu.train.trainer import train_admmnet as jtrain
 
     monkeypatch.setattr("admmnet_tpu.data.loader.native_available", lambda: False)
+    monkeypatch.setattr("admmnet_tpu_torch.data.loader.native_available", lambda: False)
     spec = jcfg.ProblemSpec(**SPEC)
     mcfg_j = jcfg.ModelConfig(spec=spec, num_layers=2, g_mode="chebyshev",
                               cheb_impl="pallas", head="spectrum")
