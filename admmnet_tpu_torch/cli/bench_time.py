@@ -11,12 +11,6 @@ solve at a time (latency).  The scenes are moved to the device before
 timing.  A fresh net gets the port's seeded initializers (seed 0);
 ``--ckpt`` loads a checkpoint the JAX package or the port wrote.
 
-``--what cheb_bwd`` times the reversible Clenshaw backward alone (K6 on
-the GPU): ``--runs`` random Hermitian 101 x 101 matrices (half with a
-dominant eigenvalue, as the GLayer's are), coefficients and a cotangent
-from seed 5, the forward's carries made once before timing; one call
-per timed repeat, reported per matrix and per call.
-
 ``--device cuda`` (the default) runs on the GPU and launches the CUDA
 kernels; it raises when no GPU is available.  ``--device cpu`` runs their
 plain PyTorch versions.
@@ -27,7 +21,6 @@ Usage:
       --repeat 3
   python -m admmnet_tpu_torch.cli.bench_time --what e2e --ckpt runs/train_net3_r05 \\
       --layers 3 --g-mode chebyshev --cheb-impl pallas
-  python -m admmnet_tpu_torch.cli.bench_time --what cheb_bwd --runs 256 --repeat 10
 """
 
 from __future__ import annotations
@@ -45,10 +38,9 @@ from admmnet_tpu_torch.cli.main_classical import resolve_device
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--what", choices=["admm", "net", "e2e", "cheb_bwd"], default="admm",
+    p.add_argument("--what", choices=["admm", "net", "e2e"], default="admm",
                    help="admm: classical solver; net: PhiEstADMMNet trunk forward; "
-                        "e2e: full ADMMNet observation -> (tau, f, conf) peak list; "
-                        "cheb_bwd: the reversible Clenshaw backward alone (K6)")
+                        "e2e: full ADMMNet observation -> (tau, f, conf) peak list")
     p.add_argument("--runs", type=int, default=1000)
     p.add_argument("--iters", type=int, default=100, help="ADMM iterations")
     p.add_argument("--layers", type=int, default=10, help="net depth")
@@ -137,31 +129,6 @@ def _net_fn(args, dev):
     return fn, f"ADMM-Net forward ({args.layers} layers)"
 
 
-def _cheb_bwd_fn(args, dev):
-    """(fn(y, b, sigma) -> scalar tensor, label): one reversible Clenshaw
-    backward of ``args.runs`` matrices prepared here (the observation is
-    ignored)."""
-    from admmnet_tpu_torch.kernels import cheb_filter as kc
-
-    B, m, D = args.runs, 101, args.cheb_degree
-    rng = np.random.default_rng(5)
-    X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
-    M = (X + np.conj(np.swapaxes(X, -1, -2))) / 2
-    v = rng.normal(size=(B // 2, m)) + 1j * rng.normal(size=(B // 2, m))
-    v /= np.linalg.norm(v, axis=-1, keepdims=True)
-    M[B // 2:] += 300.0 * v[:, :, None] * np.conj(v)[:, None, :]
-    c = (rng.normal(size=(B, D)) * 0.3).astype(np.float32)
-    Y = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
-    M, c, Y = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-               for a in (M.astype(np.complex64), c, Y.astype(np.complex64)))
-    _, carries = kc.cheb_fwd_with_residuals(M, c, D)
-
-    def fn(y, b, s):
-        return kc.cheb_bwd(M, c, carries, Y, D)[1].sum()
-
-    return fn, f"cheb_bwd B={B} m={m} degree {D}"
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
@@ -170,12 +137,7 @@ def main(argv=None):
 
     y, b, sigma = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in make_anchor_batch(args.runs, mode="redemod", seed=0))
-    if args.what == "admm":
-        fn, label = _solver_fn(args)
-    elif args.what == "cheb_bwd":
-        fn, label = _cheb_bwd_fn(args, dev)
-    else:
-        fn, label = _net_fn(args, dev)
+    fn, label = _solver_fn(args) if args.what == "admm" else _net_fn(args, dev)
 
     if args.sequential:
         float(fn(y[:1], b[:1], sigma[:1]))  # warm
@@ -202,9 +164,6 @@ def main(argv=None):
           f"({'sequential' if args.sequential else f'batched x{args.runs}'})")
     if not args.sequential and args.repeat > 1:
         print("timed calls: " + " ".join(f"{t:.6f}s" for t in totals))
-    if args.what == "cheb_bwd" and not args.sequential:
-        print(f"{label}: {np.mean(totals) * 1e3:.3f} ms per call (mean of {args.repeat}; "
-              f"calls {' '.join(f'{t * 1e3:.3f}' for t in totals)} ms)")
     if args.adaptive and getattr(fn, "last_iters", None) is not None:
         it = fn.last_iters.ravel()
         conv = fn.last_converged.ravel()

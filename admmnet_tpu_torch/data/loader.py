@@ -32,6 +32,8 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "fastloader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+N_THREADS = 4  # C++ gather threads
+PREFETCH = 2  # PrefetchLoader's batches ready ahead of the consumer
 
 _lock = threading.Lock()
 _lib = None
@@ -87,7 +89,7 @@ def _as2d(v: np.ndarray) -> np.ndarray:
     return v.reshape(v.shape[0], -1)
 
 
-def gather_rows(src: np.ndarray, idx: np.ndarray, n_threads: int = 4) -> np.ndarray:
+def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Native dst[i] = src[idx[i]] for a float32 2-D array."""
     if not ensure_built():
         raise RuntimeError("native loader unavailable")
@@ -95,7 +97,7 @@ def gather_rows(src: np.ndarray, idx: np.ndarray, n_threads: int = 4) -> np.ndar
     idx = np.ascontiguousarray(idx, np.int64)
     out = np.empty((idx.shape[0], src.shape[1]), np.float32)
     _lib.fl_gather_rows(src.ctypes.data, src.shape[0], src.shape[1], idx.ctypes.data,
-                        idx.shape[0], out.ctypes.data, n_threads)
+                        idx.shape[0], out.ctypes.data, N_THREADS)
     return out
 
 
@@ -127,22 +129,19 @@ class _SplitComplex:
 
 
 class PrefetchLoader:
-    """Shuffled minibatches by the native gather, one batch (or
-    ``prefetch``) ahead in a background thread.  Float and complex arrays go
-    through the C++ gather; integer arrays (``L_true``) are indexed in
-    numpy.  Yields dicts of numpy arrays, as ``iterate_batches`` does."""
+    """Shuffled minibatches by the native gather (``N_THREADS`` C++ threads),
+    up to ``PREFETCH`` batches ahead in a background thread.  Float and
+    complex arrays go through the C++ gather; integer arrays (``L_true``)
+    are indexed in numpy.  Yields dicts of numpy arrays, every row once, as
+    ``iterate_batches`` does."""
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int, shuffle: bool = True,
-                 seed: int = 0, n_threads: int = 4, prefetch: int = 2,
-                 drop_remainder: bool = False):
+                 seed: int = 0):
         if not ensure_built():
             raise RuntimeError("native loader unavailable; use iterate_batches")
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
-        self.n_threads = n_threads
-        self.prefetch = prefetch
-        self.drop_remainder = drop_remainder
         self._float_keys = [k for k, v in data.items() if v.dtype.kind in "fc"]
         self._other = {k: v for k, v in data.items() if v.dtype.kind not in "fc"}
         self._views = {k: _SplitComplex(data[k]) for k in self._float_keys}
@@ -157,7 +156,7 @@ class PrefetchLoader:
         colss = np.asarray([p.shape[1] for p in planes], np.int64)
         idx = np.ascontiguousarray(idx, np.int64)
         _lib.fl_gather_batch(src_ptrs, dst_ptrs, colss.ctypes.data, len(planes),
-                             idx.ctypes.data, n, self.n_threads)
+                             idx.ctypes.data, n, N_THREADS)
         batch = {k: self._views[k].assemble(o, n) for k, o in zip(self._float_keys, outs)}
         for k, v in self._other.items():
             batch[k] = v[idx]
@@ -166,9 +165,8 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = (shuffle_indices(self.n, self.seed) if self.shuffle
                  else np.arange(self.n, dtype=np.int64))
-        stop = self.n - (self.n % self.batch_size) if self.drop_remainder else self.n
-        starts = list(range(0, stop, self.batch_size))
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        starts = list(range(0, self.n, self.batch_size))
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
 
         def producer():
             for s in starts:

@@ -53,8 +53,6 @@ SIGNATURES = {
     # Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B, P, m,
     # degree, stream
     "cheb_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # P, &clusters, &smem_bytes, &threads
-    "cheb_bwd_occupancy": (_I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

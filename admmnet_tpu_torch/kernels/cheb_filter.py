@@ -256,21 +256,6 @@ def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Ten
     return ABr, ABi, cbar
 
 
-def cheb_bwd_occupancy(P: int = 112) -> dict:
-    """K6's residency on the current card at plane side P: ``clusters`` (how
-    many of its thread-block clusters the card holds at once),
-    ``smem_bytes`` (dynamic shared memory per CTA) and ``threads`` (per
-    CTA)."""
-    import ctypes
-
-    from admmnet_tpu_torch.kernels import _build
-
-    out = [ctypes.c_int() for _ in range(3)]
-    _build.check(_build.lib().cheb_bwd_occupancy(P, *(ctypes.addressof(x) for x in out)),
-                 "cheb_bwd_occupancy")
-    return dict(zip(("clusters", "smem_bytes", "threads"), (x.value for x in out)))
-
-
 def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
     """(out, carries) of the training forward: K5 for a CUDA tensor (carries
     as its padded planes), the plain version for a CPU tensor."""

@@ -294,30 +294,6 @@ int launch_cheb_bwd(const float* Mr, const float* Mi, const float* coeffs, const
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
-int occupancy_cheb_bwd(int* clusters, int* smem_bytes, int* threads) {
-  using L = tcp::Layout<P>;
-  const int bytes = bwd_smem_floats<P>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(cheb_bwd_kernel<P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(132 * L::NC);
-  cfg.blockDim = dim3(L::NT);
-  cfg.dynamicSmemBytes = bytes;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L::NC;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(clusters, cheb_bwd_kernel<P>, &cfg);
-  *smem_bytes = bytes;
-  *threads = L::NT;
-  return static_cast<int>(err);
-}
-
 }  // namespace admmk
 
 // C entry point.  Mr, Mi, Yr, Yi: (B, P, P) float planes of M and of the
@@ -340,15 +316,5 @@ extern "C" int cheb_bwd_launch(const float* Mr, const float* Mi, const float* co
   if (P == 128)
     return launch_cheb_bwd<128>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B,
                                 m, degree, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K6's residency at side P: the clusters the card holds at once, each
-// CTA's dynamic shared memory in bytes and its threads.  Returns a
-// cudaError_t.
-extern "C" int cheb_bwd_occupancy(int P, int* clusters, int* smem_bytes, int* threads) {
-  using namespace admmk;
-  if (P == 112) return occupancy_cheb_bwd<112>(clusters, smem_bytes, threads);
-  if (P == 128) return occupancy_cheb_bwd<128>(clusters, smem_bytes, threads);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,11 +33,13 @@ to; any failure raises (non-zero exit) before the last line.  The last line is t
 the line before it the card's name and power limit, and the one before
 that a JSON summary of the kernels.  Run from the
 repository root with ``python3 chip_smoke.py``; it needs one CUDA device
-and exits non-zero without one.
+and exits non-zero without one.  ``python3 chip_smoke.py --time-k6`` runs
+only phase 17's timing of K6, to pair two trees (``time_k6``).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -71,7 +73,9 @@ B_TIME_NET = (2048, 8192)  # K4 timing batches; the net forward at the last
 B_CLI = 128  # scenes of the eval_net CLI check
 CHEB_DEGREE = 48
 B_K56 = 64  # matrices, K5/K6 vs their plain versions
+B_K6_128 = 16  # matrices of side 120, K6 at P = 128 vs its plain version
 B_TIME_TRAIN = (256, 2048)  # K5/K6 timing batches; 256 is the training batch
+K6_REPS = 10  # timed K6 calls per batch
 GOLDEN_BATCH, GOLDEN_STEPS, GOLDEN_STEPS_PER_EPOCH = 64, 3, 27
 TRAIN_ARGS = ("--num-layers", "3", "--g-mode", "chebyshev", "--cheb-impl", "pallas",
               "--head", "spectrum", "--assignment", "perm", "--spectral-weight", "0.5",
@@ -277,6 +281,28 @@ def cheb_inputs(rng, B: int, dev, m: int = 101, degree: int = CHEB_DEGREE):
     return M, c, Y
 
 
+def k6_inputs(kc, B: int, dev):
+    """Phase 17's K6 timing inputs at batch B (seed 5): M, c, Y and K5's
+    carries."""
+    M, c, Y = cheb_inputs(np.random.default_rng(5), B, dev)
+    return M, c, Y, kc.cheb_fwd_planes(M, c, CHEB_DEGREE)[2]
+
+
+def k6_call_ms(kc, M, c, Y, carries) -> list:
+    """ms of each of K6_REPS back-to-back K6 calls, by CUDA events between
+    them, after one warm call."""
+    fn = lambda: kc.cheb_bwd(M, c, carries, Y, CHEB_DEGREE)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(K6_REPS + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
 def anchor_scores(phi: torch.Tensor, pcfg) -> dict:
     """``match_peaks`` stats of the top-3 peaks of anchor solves against the
     anchor's three targets."""
@@ -406,14 +432,6 @@ class Smoke:
             for ln in text.splitlines():
                 if "registers" in ln or "spill" in ln:
                     log(f"[2 build]   {name} ptxas {ln.strip()}")
-        from admmnet_tpu_torch.kernels.cheb_filter import cheb_bwd_occupancy
-
-        for P in (112, 128):
-            occ = cheb_bwd_occupancy(P)
-            log(f"[2 build] K6 at P={P}: clusters of {P // 16} CTAs x {occ['threads']} threads, "
-                f"{occ['smem_bytes']} B dynamic shared memory per CTA, {occ['clusters']} "
-                f"clusters resident on the card")
-            check(occ["clusters"] > 0, f"K6 at P={P} cannot be resident")
 
     def k6_sass(self):
         """K6's products reach the tensor cores: HMMA instructions in its SASS."""
@@ -884,24 +902,33 @@ class Smoke:
         check(bitwise, "K5's output differs from K4's")
         check(e5 < K5_PLAIN_TOL and pad_ok, "K5's carries disagree with the plain version")
 
-        ABr, ABi, cbar = kc.cheb_bwd_planes(M, c, carries, Y, D)
-        Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m])
-        Ap, cp = kc.cheb_bwd_plain(M, c, cropped, Y, D)
-        Mb, Mbp = kc.normalization_backward(M, Abar), kc.normalization_backward(M, Ap)
-        torch.cuda.synchronize()
-        eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
-        ec = float(rel_err(cbar, cp).max())
-        finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
-            torch.all(torch.isfinite(cbar)))
-        pad_ok = all(bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
-                     for x in (ABr, ABi))
-        self.kernels["K6"] = {"max_abs_err": max(float((Abar - Ap).abs().max()),
-                                                 float((cbar - cp).abs().max()))}
-        log(f"[14 K6 vs plain] 3xTF32 tensor-core products: Mbar max per-matrix rel err "
-            f"{eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar {ec:.3e} (tol "
-            f"{K6_PLAIN_TOL['cbar']:g}); finite: {finite}; Abar padding exactly 0: {pad_ok}")
-        check(finite and pad_ok and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
-              "K6 disagrees with its plain version")
+        # K6 at the GLayer's side (P = 112: clusters of 7 CTAs, two an SM) and
+        # at a lifted side of 120 (P = 128: clusters of 8 CTAs, one an SM)
+        M120, c120, Y120 = cheb_inputs(np.random.default_rng(6), B_K6_128, self.dev, m=120)
+        cases = [(M, c, Y, carries), (M120, c120, Y120, kc.cheb_fwd_planes(M120, c120, D)[2])]
+        errs = []
+        for Mk, ck, Yk, ck_carries in cases:
+            mk, P = Mk.shape[-1], ck_carries[0].shape[-1]
+            ABr, ABi, cbar = kc.cheb_bwd_planes(Mk, ck, ck_carries, Yk, D)
+            Abar = torch.complex(ABr[:, :mk, :mk], ABi[:, :mk, :mk])
+            Ap, cp = kc.cheb_bwd_plain(Mk, ck, [x[:, :mk, :mk] for x in ck_carries], Yk, D)
+            Mb, Mbp = kc.normalization_backward(Mk, Abar), kc.normalization_backward(Mk, Ap)
+            torch.cuda.synchronize()
+            eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
+            ec = float(rel_err(cbar, cp).max())
+            finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
+                torch.all(torch.isfinite(cbar)))
+            pad_ok = all(bool(torch.all(x[:, mk:, :] == 0)) and bool(torch.all(x[:, :, mk:] == 0))
+                         for x in (ABr, ABi))
+            errs += [float((Abar - Ap).abs().max()), float((cbar - cp).abs().max())]
+            log(f"[14 K6 vs plain] B={Mk.shape[0]} m={mk} (P={P}), 3xTF32 tensor-core products: "
+                f"Mbar max per-matrix rel err {eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar "
+                f"{ec:.3e} (tol {K6_PLAIN_TOL['cbar']:g}); finite: {finite}; Abar padding "
+                f"exactly 0: {pad_ok}")
+            check(finite and pad_ok and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
+                  f"K6 at P={P} disagrees with its plain version")
+        self.kernels["K6"] = {"max_abs_err": max(errs)}
+        del cases, M120, c120, Y120
 
         # through autograd: cheb_filter_matrices (K5 + K6) vs the plain forward
         grads = []
@@ -952,11 +979,26 @@ class Smoke:
             generate_dataset.main(["--out", str(data), "--fixed-snr", "20", "--total", "10000",
                                    "--seed", "13", "--device", "cuda"])
         t_gen = time.time() - t0
+        # count the batches the native loader hands the trainer
+        from admmnet_tpu_torch.data import loader
+
+        drawn = []
+        native_iter = loader.PrefetchLoader.__iter__
+
+        def counting_iter(self):
+            for batch in native_iter(self):
+                drawn.append(len(batch["y"]))
+                yield batch
+
         t0 = time.time()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            train_cli.main(["--data", str(data), "--workdir", str(work), *TRAIN_ARGS,
-                            "--device", "cuda"])
+        loader.PrefetchLoader.__iter__ = counting_iter
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(["--data", str(data), "--workdir", str(work), *TRAIN_ARGS,
+                                "--device", "cuda"])
+        finally:
+            loader.PrefetchLoader.__iter__ = native_iter
         t_train = time.time() - t0
         from admmnet_tpu_torch.kernels import cheb_filter as kc
 
@@ -1012,12 +1054,13 @@ class Smoke:
             f"{init_res['test_loss']:.6f} (matched F1 {init_res['matched_f1']:.4f}), committed "
             f"{ref_res['test_loss']:.6f}; share of the init-to-committed gap closed {closed:.4f} "
             f"(need >= {TRAIN_LOSS_GAP_CLOSED})")
-        from admmnet_tpu_torch.data import loader
-
-        built = loader.native_available() and loader.library_path().exists()
-        log(f"[16 loader] the port's native minibatch loader built on this machine "
-            f"({loader.library_path().name}) and drew the epochs: {built}")
-        check(built, "training: the native loader did not build")
+        epochs = len(hist["train_loss"])
+        log(f"[16 loader] train_cli drew {len(drawn)} batches ({sum(drawn)} rows) from the "
+            f"port's native minibatch loader ({loader.library_path().name}); the {n_steps} "
+            f"training steps need {n_steps} batches ({epochs} x {len(self.train_split['y'])} "
+            f"rows)")
+        check(len(drawn) >= n_steps and sum(drawn) >= epochs * len(self.train_split["y"]),
+              "training: the epochs were not drawn from the native loader")
         check(all(np.isfinite(hist["train_loss"])) and fell, "training: val loss did not fall")
         check(res["matched_f1"] >= ref_res["matched_f1"] - TRAIN_F1_BAND,
               "training: matched test F1 below the committed checkpoint's")
@@ -1039,14 +1082,13 @@ class Smoke:
 
         tag = f"[{self.card}]"
         D = CHEB_DEGREE
-        rng = np.random.default_rng(5)
         for B in B_TIME_TRAIN:
-            M, c, Y = cheb_inputs(rng, B, self.dev)
-            _, _, carries = kc.cheb_fwd_planes(M, c, D)
+            M, c, Y, carries = k6_inputs(kc, B, self.dev)
             cropped = [x[:, :101, :101].contiguous() for x in carries]
             k5 = cuda_ms(lambda: kc.cheb_fwd_planes(M, c, D), reps=3)
             k5p = cuda_ms(lambda: kc.cheb_filter_matrices_plain_with_residuals(M, c, D), reps=3)
-            k6 = cuda_ms(lambda: kc.cheb_bwd(M, c, carries, Y, D), reps=3)
+            calls = k6_call_ms(kc, M, c, Y, carries)
+            k6 = float(np.median(calls))
             k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D), reps=3)
             b5, by5 = bound(cheb_flops(B), cheb_bytes(B) + B * 4 * 101 * 101 * 4)
             # K6's products run on the tensor cores in 3xTF32: three TF32
@@ -1057,7 +1099,8 @@ class Smoke:
             b6s, _ = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
             log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.2f} ms, plain {k5p:.2f} ms; "
                 f"bound {b5:.2f} ms ({by5}) {tag}")
-            log(f"[17 time K6] B={B}: kernel {k6:.3f} ms ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
+            log(f"[17 time K6] B={B}: kernel {k6:.3f} ms, the median of {K6_REPS} calls "
+                f"{min(calls):.3f}-{max(calls):.3f} ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
                 f"TFLOP/s useful), plain {k6p:.2f} ms; 3xTF32 tensor-core bound {b6:.3f} ms "
                 f"({by6}; {b6 / k6:.1%} of it), fp32 SIMT bound {b6s:.2f} ms ({b6s / k6:.1%} "
                 f"of it) {tag}")
@@ -1451,5 +1494,31 @@ def main() -> int:
     return 0
 
 
+def time_k6() -> int:
+    """``--time-k6``: phase 17's timing of K6 alone, to compare two trees on
+    one card.  Copy this file into the root of the other tree (for example
+    the parent commit unpacked with ``git archive`` into ``build/parent``),
+    then, in one session on the card, run ``python3 build/parent/chip_smoke.py
+    --time-k6`` and ``python3 chip_smoke.py --time-k6`` in the order parent,
+    change, change, parent: each process imports and builds the port beside
+    its own file."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: K6's timing needs one GPU")
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    tag = f"[{card()}]"
+    for B in B_TIME_TRAIN:
+        calls = k6_call_ms(kc, *k6_inputs(kc, B, dev))
+        log(f"[time K6] {ROOT} B={B}: median {np.median(calls):.3f} ms, mean "
+            f"{np.mean(calls):.3f} ms; calls {' '.join(f'{t:.3f}' for t in calls)} {tag}")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-k6", action="store_true",
+                    help="time K6 alone as phase 17 does (see time_k6) and run nothing else")
+    sys.exit(time_k6() if ap.parse_args().time_k6 else main())

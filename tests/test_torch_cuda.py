@@ -185,13 +185,17 @@ def test_cheb_bwd_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [24, 101])
+@pytest.mark.parametrize("m", [24, 101, 120])
 @pytest.mark.parametrize("degree", [2, 3, 48])
 def test_cheb_bwd_kernel_edges(cuda, degree, m):
     """K6 at the loop's bounds (degree 2: no step but the first; 3: no
     rebuild), at a side that leaves whole bands of the cluster as padding
-    (m = 24) and at the GLayer's, with a zero matrix: vs its plain version,
-    finite, and every padded row and column of Abar exactly 0."""
+    (m = 24), at the GLayer's (m = 101, P = 112) and at a lifted side of the
+    P = 128 instantiation (m = 120: clusters of 8 CTAs), with a zero matrix:
+    vs its plain version, finite, and every padded row and column of Abar
+    exactly 0.  The 1e-3 limit catches a wrong band or step, not a lost
+    digit: K6's precision (3xTF32, fp32-faithful) is held to K6_PLAIN_TOL in
+    chip_smoke.py phase 14, at both plane sides."""
     M, c, Y = _cheb_inputs(cuda, B=8, m=m, degree=degree, seed=degree)
     M[-1] = 0
     _, _, carries = kc.cheb_fwd_planes(M, c, degree)

@@ -222,15 +222,3 @@ def test_bench_time_e2e(capsys):
           "--device", "cpu"])
     txt = capsys.readouterr().out
     assert "ADMM-Net e2e detection" in txt and "spectrum head" in txt
-
-
-def test_bench_time_cheb_bwd(capsys):
-    """--what cheb_bwd times the reversible Clenshaw backward alone (its
-    plain version on the CPU), one line per call set."""
-    from admmnet_tpu_torch.cli.bench_time import main
-
-    main(["--what", "cheb_bwd", "--runs", "2", "--cheb-degree", "4", "--repeat", "2",
-          "--device", "cpu"])
-    txt = capsys.readouterr().out
-    line = [ln for ln in txt.splitlines() if "ms per call" in ln]
-    assert len(line) == 1 and line[0].startswith("cheb_bwd B=2 m=101 degree 4")

@@ -51,21 +51,21 @@ def test_gather_rows_equals_numpy_and_jax():
     np.testing.assert_array_equal(got, jloader.gather_rows(src, idx))
 
 
-@pytest.mark.parametrize("shuffle, drop", [(True, False), (False, False), (True, True)])
-def test_prefetch_loader_batches_equal_jax(shuffle, drop):
+@pytest.mark.parametrize("shuffle, batch", [(True, 64), (False, 64), (True, 300), (True, 512)])
+def test_prefetch_loader_batches_equal_jax(shuffle, batch):
+    """Every batch equal to the JAX package's, with a short last batch (64),
+    one batch of every row (300) and a batch larger than the data (512)."""
     data = _data(300)
-    kw = dict(shuffle=shuffle, seed=3, drop_remainder=drop)
-    got = list(tloader.PrefetchLoader(data, 64, **kw))
-    ref = list(jloader.PrefetchLoader(data, 64, **kw))
-    assert len(got) == len(ref) == (4 if drop else 5)
+    got = list(tloader.PrefetchLoader(data, batch, shuffle=shuffle, seed=3))
+    ref = list(jloader.PrefetchLoader(data, batch, shuffle=shuffle, seed=3))
+    assert len(got) == len(ref) == -(-300 // batch)
     for g, r in zip(got, ref):
         assert set(g) == set(r)
         for k in r:
             assert g[k].dtype == r[k].dtype and g[k].shape == r[k].shape
             np.testing.assert_array_equal(g[k], r[k])
-    if not drop:
-        rows = np.concatenate([b["sigma"] for b in got])
-        np.testing.assert_array_equal(np.sort(rows), np.sort(data["sigma"]))
+    rows = np.concatenate([b["sigma"] for b in got])
+    np.testing.assert_array_equal(np.sort(rows), np.sort(data["sigma"]))
 
 
 def test_trainer_draws_the_native_order():
