@@ -15,7 +15,9 @@
 #include "fused_solve.cuh"
 
 // C entry point.  yob_r, yob_i, w: (B, n) float rows; A: (B,) constraint
-// weights; phi_r, phi_i: (B, n), written; scratch: B * 11 * P * P floats.
+// weights; phi_r, phi_i: (B, n), written; scratch: B * 11 * P * P floats
+// (13 with ablate "assemble").  ablate: AB_NONE or a profiling variant of
+// the unfolded lean layout (fused_solve.cuh).
 // coeffs: host array of nsteps (a, b, c) triples.  lists selects K3's
 // layout, which takes none of fold_diag, warm_root, all_hi, three_pass.
 // Returns the launch's cudaError_t.
@@ -25,11 +27,14 @@ extern "C" int fused_admm_fast_launch(const float* yob_r, const float* yob_i, co
                                       float rho, float lam_inv_sq, const float* coeffs,
                                       int nsteps, int hi_steps, int outer_iters,
                                       int inner_iters, int final_hi, int warm_root, int all_hi,
-                                      int three_pass, int fold_diag, int lists, void* stream) {
+                                      int three_pass, int fold_diag, int lists, int ablate,
+                                      void* stream) {
   using namespace admmk;
   if (nsteps < 0 || nsteps > MAX_STEPS || B <= 0 || n < 1 || n + 1 > P || n > ROW)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lists && (fold_diag || warm_root || all_hi || three_pass))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ablate < AB_NONE || ablate > AB_FINALS || (ablate != AB_NONE && (lists || fold_diag)))
     return static_cast<int>(cudaErrorInvalidValue);
   Schedule sched{};
   for (int s = 0; s < nsteps; ++s) {
@@ -42,6 +47,11 @@ extern "C" int fused_admm_fast_launch(const float* yob_r, const float* yob_i, co
                         lam_inv_sq, final_hi, warm_root, all_hi,     three_pass};
   const SolveIO io{yob_r, yob_i, w, A, phi_r, phi_i, scratch, B};
   const int layout = lists ? LISTS : (fold_diag ? FOLDED : LEAN);
+  if (ablate != AB_NONE) {
+    if (P == 112) return fused_admm_fast_ablate(ablate, io, prm, sched, stream);
+    if (P == 128) return fused_admm_fast_ablate_p128(ablate, io, prm, sched, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (P == 112) return launch_fused_layout<112, NewtonProjection>(layout, io, prm, sched, stream);
   if (P == 128) return fused_admm_fast_p128(layout, io, prm, sched, stream);
   return static_cast<int>(cudaErrorInvalidValue);

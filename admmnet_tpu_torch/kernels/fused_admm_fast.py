@@ -19,6 +19,17 @@ products), not the per-step scan path of ``solver.admm``.  The kernel keeps
 only Z as planes: of G it keeps the diagonal and row n, which is all the
 next iteration reads.
 
+``ablate`` (profiling only: any value but ``"none"`` returns a wrong phi by
+design) removes one component of the unfolded lean iteration, as the JAX
+kernel's variants do, so that a subtraction profile can time it
+(``chip_smoke.py --profile-k2``): ``"corner"`` (the corner-row reads: the
+previous phi stands in for them), ``"diag"`` (the diagonal read: t = phi),
+``"h"`` (the H-projection: h = t), ``"norm"`` (the Frobenius scaling: 1/64),
+``"assemble"`` (M = G/2 - Z/rho), ``"zupd"`` (Z' = G') and ``"finals"`` (the
+closing |M| products: G' is the sign iterate).  The phi output then reads
+phi + 0 G'[n, :], the final G' row, which keeps the chain live and carries a
+non-finite value through as JAX's debug output does.
+
 Precision rule (kernel and plain version alike): a schedule step is "hi"
 iff ``all_hi or s >= nsteps - hi_steps``, the closing products iff
 ``final_hi``; a hi product is the 3-pass split-bf16 product when
@@ -45,6 +56,7 @@ from admmnet_tpu_torch.ops.projections import POLAR_BF16_POLISH, POLAR_BF16_SCHE
 
 SCRATCH_PLANES = 11
 BIG = 3e37  # "no bracket yet": the next clamp falls back to the global one
+NORM_ABLATED_INV = 1.0 / 64.0  # ablate="norm": the fixed Frobenius scaling
 
 launches = LaunchCounter()  # K2: layout="lean"
 lists_launches = LaunchCounter()  # K3: layout="lists"
@@ -58,10 +70,15 @@ def full_schedule(schedule, hi_steps: int, all_hi: bool):
     )
 
 
+ABLATE = ("none", "corner", "diag", "h", "norm", "assemble", "zupd", "finals")
+
+
 def check_variant(layout: str, ablate: str, fold_diag: bool, warm_root: bool,
                   all_hi: bool, three_pass: bool) -> None:
-    """The JAX wrapper's argument guards, with its messages; the profiling
-    variants (``ablate``) are not ported."""
+    """The JAX wrapper's argument guards, with its messages, and the names
+    of the profiling variants (``ABLATE``)."""
+    if ablate not in ABLATE:
+        raise ValueError(f"unknown ablate {ablate!r}; expected one of {ABLATE}")
     if layout not in ("lean", "lists"):
         raise ValueError(f"unknown layout {layout!r}")
     if ablate != "none" and layout != "lean":
@@ -72,8 +89,6 @@ def check_variant(layout: str, ablate: str, fold_diag: bool, warm_root: bool,
         raise ValueError(
             "fold_diag/warm_root/all_hi/three_pass are lean-layout options"
         )
-    if ablate != "none":
-        raise NotImplementedError("ablate profiling variants are not ported")
 
 
 def solve_inputs(y, b, sigma, rho):
@@ -164,13 +179,14 @@ def project_sum_inf_block(t, A, outer_iters, inner_iters, bracket=None):
 
 
 def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
-                hi_steps, final_hi, layout, fold_diag, all_hi, three_pass):
+                hi_steps, final_hi, layout, fold_diag, all_hi, three_pass,
+                ablate="none"):
     """The fused kernels' iteration in torch ops; phi (B, n) complex64.
 
     ``project(t, A)`` is the H-projection of (B, n) rows (A: (B, 1));
     ``schedule`` is the full schedule the kernel runs.  Shared by K2, K3
     and K7 (``kernels.fused_admm``), which differ in the projection and the
-    knobs.
+    knobs.  ``ablate``: K2's profiling variants (unfolded lean layout).
     """
     B, n = y.shape
     m = n + 1
@@ -205,14 +221,20 @@ def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
             phi_i = w * (yob_i - ai)
             t = adiag[:, :n]
         else:
-            # corner column by the Hermitian row read: g = conj(G[n, :])
-            g_r, g_i = Gr[:, n, :n], -Gi[:, n, :n]
-            z_r, z_i = Zr[:, n, :n], -Zi[:, n, :n]
+            if ablate == "corner":  # the previous phi stands in for the rows
+                g_r, g_i, z_r, z_i = phi_r, phi_i, phi_r, phi_i
+            else:
+                # corner column by the Hermitian row read: g = conj(G[n, :])
+                g_r, g_i = Gr[:, n, :n], -Gi[:, n, :n]
+                z_r, z_i = Zr[:, n, :n], -Zi[:, n, :n]
             phi_r = w * (yob_r + (g_r if rho1 else rho * g_r) + z_r)
             phi_i = w * (yob_i + (g_i if rho1 else rho * g_i) + z_i)
-            t = (torch.diagonal(Gr, dim1=-2, dim2=-1)
-                 + zscale(torch.diagonal(Zr, dim1=-2, dim2=-1)))[:, :n]
-        h = project(t, A)
+            if ablate == "diag":
+                t = phi_r
+            else:
+                t = (torch.diagonal(Gr, dim1=-2, dim2=-1)
+                     + zscale(torch.diagonal(Zr, dim1=-2, dim2=-1)))[:, :n]
+        h = t if ablate == "h" else project(t, A)
         # B = [[diag h, phi], [phi^H, 1/lambda^2]]
         Br = torch.zeros_like(Zr)
         Bi = torch.zeros_like(Zr)
@@ -222,22 +244,31 @@ def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
         Br[:, n, n] = lam_inv_sq
         Bi[:, n, :n] = -phi_i
         Bi[:, :n, n] = phi_i
-        Mr = Br - zscale(Zr)
-        Mi = Bi - zscale(Zi)
+        if ablate == "assemble":
+            Mr = 0.5 * Gr - zscale(Zr)
+            Mi = 0.5 * Gi - zscale(Zi)
+        else:
+            Mr = Br - zscale(Zr)
+            Mi = Bi - zscale(Zi)
         if lists:
             Mr = 0.5 * (Mr + tr(Mr))
             Mi = 0.5 * (Mi - tr(Mi))
-        inv = frobenius_inv(Mr, Mi)
+        inv = NORM_ABLATED_INV if ablate == "norm" else frobenius_inv(Mr, Mi)
         Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps, all_hi,
                                three_pass)
-        Ar, Ai = abs_product(Xr, Xi, Mr, Mi, final_split)
-        Pr = 0.5 * (Mr + Ar)
-        Pi = 0.5 * (Mi + Ai)
+        if ablate == "finals":  # G' is the sign iterate
+            Pr, Pi = Xr, Xi
+        else:
+            Ar, Ai = abs_product(Xr, Xi, Mr, Mi, final_split)
+            Pr = 0.5 * (Mr + Ar)
+            Pi = 0.5 * (Mi + Ai)
         if lists:
             Pr = 0.5 * (Pr + tr(Pr))
             Pi = 0.5 * (Pi - tr(Pi))
             Zr = Zr + rho * (Pr - Br)
             Zi = Zi + rho * (Pi - Bi)
+        elif ablate == "zupd":
+            Zr, Zi = Pr, Pi
         else:
             Zr = Pr - Mr if rho1 else rho * (Pr - Mr)
             Zi = Pi - Mi if rho1 else rho * (Pi - Mi)
@@ -247,19 +278,21 @@ def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
             arow_i = Ai[:, n, :]
         else:
             Gr, Gi = Pr, Pi
+    if ablate != "none":  # the debug output keeps the final G' row live
+        phi_r = phi_r + 0.0 * Gr[:, n, :n]
     return torch.complex(phi_r, phi_i)
 
 
 def admm_solve_fused_fast_plain(
     y, b, sigma, num_iters, rho=1.0, lambda_val=1.0, *, hi_steps=0,
     outer_iters=6, inner_iters=5, schedule=POLAR_BF16_SCHEDULE, final_hi=True,
-    layout="lean", loop_unroll=1, fold_diag=False, warm_root=False, all_hi=False,
-    three_pass=False,
+    layout="lean", ablate="none", loop_unroll=1, fold_diag=False, warm_root=False,
+    all_hi=False, three_pass=False,
 ):
     """The kernel's computation in torch ops; phi (B, n) complex64.
     ``loop_unroll`` changes no arithmetic and is ignored."""
     del loop_unroll
-    check_variant(layout, "none", fold_diag, warm_root, all_hi, three_pass)
+    check_variant(layout, ablate, fold_diag, warm_root, all_hi, three_pass)
     B = y.shape[0]
     bracket = [torch.zeros((B, 1), dtype=torch.float32, device=y.device),
                torch.full((B, 1), BIG, dtype=torch.float32, device=y.device)]
@@ -274,7 +307,7 @@ def admm_solve_fused_fast_plain(
         y, b, sigma, num_iters, rho, lambda_val, project,
         schedule=full_schedule(schedule, hi_steps, all_hi), hi_steps=hi_steps,
         final_hi=final_hi, layout=layout, fold_diag=fold_diag, all_hi=all_hi,
-        three_pass=three_pass,
+        three_pass=three_pass, ablate=ablate,
     )
 
 
@@ -309,8 +342,8 @@ def admm_solve_fused_fast(
     whole loop inside it); CPU tensors run ``admm_solve_fused_fast_plain``.
     ``kblk`` (the TPU kernel's instance interleave) and ``loop_unroll`` (a
     Mosaic loop-unroll factor, no arithmetic) have no effect on Hopper.
-    The argument guards are the JAX wrapper's; ``ablate`` (profiling
-    variants) raises NotImplementedError.
+    The argument guards are the JAX wrapper's; ``ablate`` selects a
+    profiling variant (module docstring), an instantiation of its own.
     """
     del kblk, loop_unroll  # one thread block per instance, loop not unrolled
     check_variant(layout, ablate, fold_diag, warm_root, all_hi, three_pass)
@@ -318,7 +351,7 @@ def admm_solve_fused_fast(
     B, n = y.shape
     P = padded_side(n + 1)
     kw = dict(hi_steps=hi_steps, outer_iters=outer_iters, inner_iters=inner_iters,
-              schedule=schedule, final_hi=final_hi, layout=layout,
+              schedule=schedule, final_hi=final_hi, layout=layout, ablate=ablate,
               fold_diag=fold_diag, warm_root=warm_root, all_hi=all_hi,
               three_pass=three_pass)
     if y.device.type == "cpu":
@@ -332,8 +365,8 @@ def admm_solve_fused_fast(
     phi_i = torch.empty_like(phi_r)
     if B == 0:
         return torch.complex(phi_r, phi_i)
-    scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32,
-                          device=y.device)
+    planes = SCRATCH_PLANES + (2 if ablate == "assemble" else 0)  # + G planes
+    scratch = torch.empty((B, planes, P, P), dtype=torch.float32, device=y.device)
     coeffs = np.ascontiguousarray(sched, dtype=np.float32)
     lists = layout == "lists"
     lib = _build.lib()
@@ -344,7 +377,7 @@ def admm_solve_fused_fast(
             B, n, P, int(num_iters), float(rho), float(1.0 / lambda_val**2),
             coeffs.ctypes.data, len(sched), int(hi_steps), int(outer_iters),
             int(inner_iters), int(final_hi), int(warm_root), int(all_hi),
-            int(three_pass), int(fold_diag), int(lists),
+            int(three_pass), int(fold_diag), int(lists), ABLATE.index(ablate),
             torch.cuda.current_stream(y.device).cuda_stream,
         )
     _build.check(err, "fused_admm_fast_launch")

@@ -34,7 +34,9 @@ the line before it the card's name and power limit, and the one before
 that a JSON summary of the kernels.  Run from the
 repository root with ``python3 chip_smoke.py``; it needs one CUDA device
 and exits non-zero without one.  ``python3 chip_smoke.py --time-k6`` runs
-only phase 17's timing of K6, to pair two trees (``time_k6``).
+only phase 17's timing of K6, to pair two trees (``time_k6``);
+``python3 chip_smoke.py --profile-k2`` only phase 25, the subtraction
+profile of K2 by its ``ablate`` variants (``k2_profile``).
 """
 
 from __future__ import annotations
@@ -88,6 +90,18 @@ F1_BAND = 0.005  # random-scene gate: F1 >= eigh control - band
 HATCH = dict(g_update="fused_fast", fused_fold_diag=False, fused_warm_root=False,
              fused_proj_iters=4, fused_inner_iters=3)
 HATCH_DIFF_ITERS = 15
+# K2/K3 at the plane side P = 128: the anchor's three targets on a 7 x 17
+# grid (n = 119, lifted side 120), anchor_like_batch
+B_P128 = 256
+P128_GRID = (7, 17)
+# runs/profile_lean.py's subtraction profile of K2's unfolded lean kernel
+# (--profile-k2): the full kernel at two iteration counts splits the fixed
+# per-call cost from the per-iteration slope, then each ablate variant at
+# the high count; sched2, a 4/3 cold root, final_hi off, best of the calls
+B_PROFILE = 8192
+PROFILE_ITERS = (100, 25)
+PROFILE_REPS = 3
+B_ABLATE_CHECK = 512  # instances of each variant held against its plain version
 # The card's published peaks (H100 SXM at 700 W, NVIDIA's datasheet):
 # fp32 outside the tensor cores, dense bf16 on the tensor cores (products
 # of bf16-valued operands accumulated in fp32), and device memory bandwidth.
@@ -303,6 +317,118 @@ def k6_call_ms(kc, M, c, Y, carries) -> list:
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
+def anchor_like_batch(B: int, Nb: int, Nd: int, seed: int):
+    """(y, b, sigma) numpy rows of the anchor's three targets on an Nb x Nd
+    grid (n = Nb Nd), as make_anchor_batch builds them at 10 x 10: fresh
+    QPSK symbols, demodulation errors at 7 dB, observation noise at 20 dB,
+    sigma = ||e / b|| + 1."""
+    from admmnet_tpu_torch.data.anchor import ANCHOR_C, ANCHOR_F, ANCHOR_TAU, _psi
+
+    rng = np.random.default_rng(seed)
+    n = Nb * Nd
+    sym = np.exp(1j * (np.pi / 2 * rng.integers(0, 4, size=(B, n)) + np.pi / 4))
+    noise = np.sqrt(10 ** -0.7 / 2) * (rng.standard_normal((B, n))
+                                       + 1j * rng.standard_normal((B, n)))
+    quad = np.floor(np.mod(np.angle(sym + noise), 2 * np.pi) * 2 / np.pi).astype(int) % 4
+    b = np.exp(1j * (np.pi / 2 * quad + np.pi / 4))
+    e = sym - b
+    clean = sym * _psi(ANCHOR_TAU, ANCHOR_F, ANCHOR_C, Nb, Nd)[None]
+    w_var = np.linalg.norm(clean, axis=-1, keepdims=True) ** 2 / (100.0 * n)
+    y = clean + np.sqrt(w_var / 2) * (rng.standard_normal((B, n))
+                                      + 1j * rng.standard_normal((B, n)))
+    sigma = np.linalg.norm(e / b, axis=-1) + 1.0
+    return y.astype(np.complex64), b.astype(np.complex64), sigma.astype(np.float32)
+
+
+def call_ms(fn, reps: int) -> list:
+    """ms of each of ``reps`` back-to-back calls, by CUDA events between
+    them, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def device_profile(fn):
+    """(device busy us, window us, [(kernel name, device us)] largest
+    first) of one call of ``fn`` under torch.profiler, or None when the
+    profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(t for _, t in kernels)
+    if busy == 0:
+        return None
+    return busy, window_us, sorted(kernels, key=lambda kt: -kt[1])
+
+
+def k2_profile(dev, tag: str) -> dict:
+    """runs/profile_lean.py's subtraction profile of K2's unfolded lean
+    kernel on the card, and each ablate variant held against its plain
+    version (the same arithmetic, so the unfolded carry's limits).  The
+    norm, zupd and finals variants change the values that flow on, so their
+    marginals can read negative (RESULTS.md 3.6): they are reported as
+    read, not subtracted into a total."""
+    from admmnet_tpu_torch.data.anchor import make_anchor_batch
+    from admmnet_tpu_torch.kernels import fused_admm_fast as kf
+    from admmnet_tpu_torch.ops.projections import POLAR_BF16_SCHED2
+
+    kw = dict(hi_steps=0, outer_iters=4, inner_iters=3, schedule=POLAR_BF16_SCHED2,
+              final_hi=False, layout="lean", fold_diag=False)
+    y, b, s = to_dev(dev, *make_anchor_batch(B_ABLATE_CHECK, "redemod", seed=0))
+    for ablate in kf.ABLATE[1:]:
+        pk = kf.admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, ablate=ablate, **kw)
+        pp = kf.admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, ablate=ablate, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
+              f"K2 ablate={ablate}: non-finite phi")
+        e = rel_err(pk, pp)
+        med, mx = float(e.median()), float(e.max())
+        log(f"[25 K2 ablate={ablate}] B={B_ABLATE_CHECK} x {ITERS} iters: kernel vs plain "
+            f"per-instance rel err median {med:.3e} (tol {HATCH_PLAIN_TOL['median']:g}), max "
+            f"{mx:.3e} (tol {HATCH_PLAIN_TOL['max']:g})")
+        check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
+              f"K2 ablate={ablate} disagrees with its plain version")
+
+    y, b, s = to_dev(dev, *make_anchor_batch(B_PROFILE, "redemod", seed=0))
+
+    def best(iters: int, ablate: str) -> float:
+        calls = call_ms(lambda: kf.admm_solve_fused_fast(y, b, s, iters, 1.0, 1.0,
+                                                          ablate=ablate, **kw), PROFILE_REPS)
+        log(f"[25 profile K2] ablate={ablate} iters={iters}: best {min(calls):.3f} ms of "
+            f"{' '.join(f'{t:.3f}' for t in calls)} {tag}")
+        return min(calls)
+
+    hi, lo = PROFILE_ITERS
+    t_hi, t_lo = best(hi, "none"), best(lo, "none")
+    slope = (t_hi - t_lo) / (hi - lo)
+    fixed = t_hi - hi * slope
+    out = {"ms_per_iter": slope, "fixed_ms": fixed, "ms": t_hi}
+    log(f"[25 profile K2] B={B_PROFILE}, sched2, 4/3 cold root, final_hi off: full "
+        f"{slope:.4f} ms/iter, fixed per call {fixed:.3f} ms {tag}")
+    for ablate in kf.ABLATE[1:]:
+        marginal = slope - (best(hi, ablate) - fixed) / hi
+        out[ablate] = marginal
+        log(f"[25 profile K2] -> {ablate}: marginal {marginal:.4f} ms/iter "
+            f"({marginal / slope:.1%} of the full slope) {tag}")
+    log("[25 profile K2] " + json.dumps({k: round(v, 5) for k, v in out.items()}))
+    return out
+
+
 def anchor_scores(phi: torch.Tensor, pcfg) -> dict:
     """``match_peaks`` stats of the top-3 peaks of anchor solves against the
     anchor's three targets."""
@@ -502,24 +628,28 @@ class Smoke:
 
         y, b, s = make_anchor_batch(B_SOLVE, "redemod", seed=0)
         self.anchor = to_dev(self.dev, y, b, s)
+        self.anchor128 = to_dev(self.dev, *anchor_like_batch(B_P128, *P128_GRID, seed=0))
         worst_abs = 0.0
-        for label, opts, B in (("fused_fast", self.prod, B_SOLVE),
-                               ("fused_exact", self.exact, B_EXACT)):
+        for label, opts, B, rows in (("fused_fast", self.prod, B_SOLVE, self.anchor),
+                                     ("fused_exact", self.exact, B_EXACT, self.anchor),
+                                     ("fused_fast", self.prod, B_P128, self.anchor128),
+                                     ("fused_exact", self.exact, B_P128, self.anchor128)):
             kw = fused_kernel_options(opts)
-            yy, bb, ss = (x[:B] for x in self.anchor)
+            yy, bb, ss = (x[:B] for x in rows)
+            n = yy.shape[1]
             pk = admm_solve_fused_fast(yy, bb, ss, ITERS, opts.rho, 1.0, **kw)
             pp = admm_solve_fused_fast_plain(yy, bb, ss, ITERS, opts.rho, 1.0, **kw)
             torch.cuda.synchronize()
             check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
-                  f"K2 {label}: non-finite phi")
+                  f"K2 {label} n={n}: non-finite phi")
             e = rel_err(pk, pp)
             med, mx = float(e.median()), float(e.max())
             worst_abs = max(worst_abs, float((pk - pp).abs().max()))
-            log(f"[4 K2 {label}] B={B} x {ITERS} iters: kernel vs plain per-instance "
+            log(f"[4 K2 {label}] B={B} n={n} x {ITERS} iters: kernel vs plain per-instance "
                 f"rel err median {med:.3e} (tol {K2_PLAIN_TOL['median']:g}), "
                 f"max {mx:.3e} (tol {K2_PLAIN_TOL['max']:g})")
             check(med < K2_PLAIN_TOL["median"] and mx < K2_PLAIN_TOL["max"],
-                  f"K2 {label} disagrees with its plain version")
+                  f"K2 {label} n={n} disagrees with its plain version")
         self.kernels["K2"] = {"max_abs_err": worst_abs}
 
     # 5 -------------------------------------------------------------------
@@ -690,6 +820,19 @@ class Smoke:
         log(f"[9 time deploy] B={B_TIME_K2}, {DETECTION_BUDGET_ITERS} iters + "
             f"PRODUCTION_PEAKS: {dms / B_TIME_K2:.5f} ms/scene "
             f"({B_TIME_K2 / dms * 1e3:.0f} scenes/s) {tag}")
+        prof = device_profile(deploy)
+        if prof is None:
+            log("[9 profile deploy] torch.profiler shows no device time; the CUDA-event "
+                "time above stands alone")
+            return
+        busy, window_us, kernels = prof
+        k2_us = sum(t for name, t in kernels if "fused_solve" in name)
+        top = "; ".join(f"{name[:48]} {t / busy:.1%}" for name, t in kernels[:5])
+        log(f"[9 profile deploy] B={B_TIME_K2}: device busy {busy / 1e3:.2f} ms of a "
+            f"{window_us / 1e3:.2f} ms window ({busy / window_us:.1%}); K2 {k2_us / busy:.1%} "
+            f"of device time, the rest (the peak search's products, max-pool and top-k, and "
+            f"the solve's input rows) {1 - k2_us / busy:.1%} in {len(kernels) - 1} kernel "
+            f"names; by device time: {top} {tag}")
 
     # 10 ------------------------------------------------------------------
     def k4_vs_plain(self):
@@ -1152,27 +1295,27 @@ class Smoke:
         )
         from admmnet_tpu_torch.solver.admm import fused_kernel_options
 
-        y, b, s = (x[:B_SOLVE] for x in self.anchor)
-        for key, layout in (("K3", "lists"), ("K2", "lean")):
-            kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
-            pk = admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw)
-            pp = admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
-                  f"{key} {layout}: non-finite phi")
-            e = rel_err(pk, pp)
-            med, mx = float(e.median()), float(e.max())
-            worst = float((pk - pp).abs().max())
-            if key == "K3":
-                self.kernels["K3"] = {"max_abs_err": worst}
-            else:
-                self.kernels["K2"]["max_abs_err"] = max(self.kernels["K2"]["max_abs_err"], worst)
-            log(f"[18 {key} {layout}, unfolded] B={B_SOLVE} x {ITERS} iters, sched2, 4/3 cold "
-                f"root, final_hi off: kernel vs plain per-instance rel err median {med:.3e} "
-                f"(tol {HATCH_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
-                f"{HATCH_PLAIN_TOL['max']:g})")
-            check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
-                  f"{key} ({layout}, unfolded) disagrees with its plain version")
+        self.kernels["K3"] = {"max_abs_err": 0.0}
+        for rows in ((x[:B_SOLVE] for x in self.anchor), self.anchor128):
+            y, b, s = rows
+            B, n = y.shape
+            for key, layout in (("K3", "lists"), ("K2", "lean")):
+                kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
+                pk = admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw)
+                pp = admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
+                      f"{key} {layout} n={n}: non-finite phi")
+                e = rel_err(pk, pp)
+                med, mx = float(e.median()), float(e.max())
+                worst = float((pk - pp).abs().max())
+                self.kernels[key]["max_abs_err"] = max(self.kernels[key]["max_abs_err"], worst)
+                log(f"[18 {key} {layout}, unfolded] B={B} n={n} x {ITERS} iters, sched2, 4/3 "
+                    f"cold root, final_hi off: kernel vs plain per-instance rel err median "
+                    f"{med:.3e} (tol {HATCH_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
+                    f"{HATCH_PLAIN_TOL['max']:g})")
+                check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
+                      f"{key} ({layout}, unfolded) n={n} disagrees with its plain version")
 
     # 19 ------------------------------------------------------------------
     def escape_hatch(self):
@@ -1463,6 +1606,7 @@ def main() -> int:
           "a kernel of the whole-solve routes never launched")
     sm.bench_time_cli()
     sm.variant_timings()
+    k2_profile(sm.dev, f"[{sm.card}]")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -1517,8 +1661,27 @@ def time_k6() -> int:
     return 0
 
 
+def profile_k2() -> int:
+    """``--profile-k2``: phase 25 alone (``k2_profile``), to compare two trees
+    on one card as ``--time-k6`` does."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: K2's profile needs one GPU")
+    from admmnet_tpu_torch.kernels import _build
+
+    _build.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[profile K2] {ROOT}")
+    k2_profile(torch.device("cuda", 0), f"[{card()}]")
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--time-k6", action="store_true",
-                    help="time K6 alone as phase 17 does (see time_k6) and run nothing else")
-    sys.exit(time_k6() if ap.parse_args().time_k6 else main())
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--time-k6", action="store_true",
+                      help="time K6 alone as phase 17 does (see time_k6) and run nothing else")
+    mode.add_argument("--profile-k2", action="store_true",
+                      help="run K2's subtraction profile alone (phase 25, see k2_profile)")
+    args = ap.parse_args()
+    sys.exit(time_k6() if args.time_k6 else profile_k2() if args.profile_k2 else main())

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from admmnet_tpu_torch.core.config import ADMMOptions
-from admmnet_tpu_torch.data.anchor import make_anchor_batch
+from admmnet_tpu_torch.data.anchor import ANCHOR_C, ANCHOR_F, ANCHOR_TAU, _psi, make_anchor_batch
 from admmnet_tpu_torch.kernels import cheb_filter as kc
 from admmnet_tpu_torch.kernels import fused_admm as k7
 from admmnet_tpu_torch.kernels import fused_admm_fast as kf
@@ -62,10 +62,35 @@ def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
     assert _rel(Pk, psd_project_eigh(M)) < eigh_tol
 
 
+def _anchor_rows(n, dev):
+    """64 instances of the anchor's three targets at side n: the anchor
+    batch at n = 100; at n = 119 (lifted side 120, plane side 128) the same
+    targets on a 7 x 17 grid with fresh QPSK symbols, 7 dB demodulation
+    errors and 20 dB noise, as make_anchor_batch builds them."""
+    if n == 100:
+        rows = make_anchor_batch(64, "redemod", seed=0)
+    else:
+        Nb, Nd = 7, 17
+        rng = np.random.default_rng(0)
+        sym = np.exp(1j * (np.pi / 2 * rng.integers(0, 4, size=(64, n)) + np.pi / 4))
+        noise = np.sqrt(10 ** -0.7 / 2) * (rng.standard_normal((64, n))
+                                           + 1j * rng.standard_normal((64, n)))
+        quad = np.floor(np.mod(np.angle(sym + noise), 2 * np.pi) * 2 / np.pi).astype(int) % 4
+        b = np.exp(1j * (np.pi / 2 * quad + np.pi / 4))
+        clean = sym * _psi(ANCHOR_TAU, ANCHOR_F, ANCHOR_C, Nb, Nd)[None]
+        w_var = np.linalg.norm(clean, axis=-1, keepdims=True) ** 2 / (100.0 * n)
+        y = clean + np.sqrt(w_var / 2) * (rng.standard_normal((64, n))
+                                          + 1j * rng.standard_normal((64, n)))
+        sigma = np.linalg.norm((sym - b) / b, axis=-1) + 1.0
+        rows = (y.astype(np.complex64), b.astype(np.complex64), sigma.astype(np.float32))
+    return [torch.from_numpy(x).to(dev) for x in rows]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 119])
 @pytest.mark.parametrize("g_update", ["fused_fast", "fused_exact"])
-def test_fused_kernel_matches_plain(cuda, g_update):
-    y, b, s = (torch.from_numpy(x).to(cuda) for x in make_anchor_batch(64, "redemod", seed=0))
+def test_fused_kernel_matches_plain(cuda, g_update, n):
+    y, b, s = _anchor_rows(n, cuda)
     kw = fused_kernel_options(ADMMOptions(g_update=g_update))
     before = kf.launches.count
     pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
@@ -74,10 +99,11 @@ def test_fused_kernel_matches_plain(cuda, g_update):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 119])
 @pytest.mark.parametrize("layout", ["lists", "lean"])
-def test_unfolded_fused_kernels_match_plain(cuda, layout):
+def test_unfolded_fused_kernels_match_plain(cuda, layout, n):
     """K3 (lists) and K2's unfolded carry at the pinned control knobs."""
-    y, b, s = (torch.from_numpy(x).to(cuda) for x in make_anchor_batch(64, "redemod", seed=0))
+    y, b, s = _anchor_rows(n, cuda)
     kw = dict(hi_steps=0, outer_iters=4, inner_iters=3, schedule=POLAR_BF16_SCHED2,
               final_hi=False, layout=layout, fold_diag=False)
     counter = kf.lists_launches if layout == "lists" else kf.launches
@@ -85,6 +111,21 @@ def test_unfolded_fused_kernels_match_plain(cuda, layout):
     pk = kf.admm_solve_fused_fast(y, b, s, 20, 1.7, **kw)
     assert counter.count == before + 1
     assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.7, **kw)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 119])
+@pytest.mark.parametrize("ablate", kf.ABLATE[1:])
+def test_ablate_kernels_match_plain(cuda, ablate, n):
+    """K2's profiling variants (B6) at runs/profile_lean.py's knobs."""
+    y, b, s = _anchor_rows(n, cuda)
+    kw = dict(hi_steps=0, outer_iters=4, inner_iters=3, schedule=POLAR_BF16_SCHED2,
+              final_hi=False, layout="lean", fold_diag=False, ablate=ablate)
+    before = kf.launches.count
+    pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
+    assert kf.launches.count == before + 1
+    assert bool(torch.all(torch.isfinite(torch.view_as_real(pk))))
+    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
 
 
 @pytest.mark.cuda

@@ -77,6 +77,21 @@ def test_unfolded_layouts_match_interpret(layout, rho):
     assert _rel(t.numpy(), j) < 5e-5
 
 
+@pytest.mark.parametrize("ablate", kf.ABLATE[1:])
+def test_ablate_variants_match_interpret(ablate):
+    """K2's profiling variants (B6) on the unfolded lean layout, at
+    runs/profile_lean.py's knobs (the ablations change the values that flow
+    on, not the order of any sum), with the unfolded carry's bound."""
+    y, b, s = make_anchor_batch(2, mode="redemod", seed=4)
+    j = jax_fused(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), 3, 1.0, 1.0, kblk=2,
+                  interpret=True, layout="lean", fold_diag=False, ablate=ablate, **PINNED)
+    t = kf.admm_solve_fused_fast(*_tensors(y, b, s), 3, 1.0, 1.0, layout="lean",
+                                 fold_diag=False, ablate=ablate, **PINNED)
+    assert t.dtype == torch.complex64 and t.shape == y.shape
+    assert bool(np.all(np.isfinite(np.asarray(j))))
+    assert _rel(t.numpy(), j) < 5e-5
+
+
 @pytest.mark.parametrize("B, iters, rho, lam, tol", [(3, 15, 1.0, 1.0, 2e-4),
                                                      (2, 8, 2.0, 0.5, 1e-4)])
 def test_k7_plain_matches_interpret(B, iters, rho, lam, tol):
