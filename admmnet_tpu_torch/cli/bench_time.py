@@ -19,6 +19,8 @@ Usage:
   python -m admmnet_tpu_torch.cli.bench_time --what admm --g-update fused_fast --runs 1000
   python -m admmnet_tpu_torch.cli.bench_time --what admm --g-update fused_fast --runs 8192 \\
       --repeat 3
+  python -m admmnet_tpu_torch.cli.bench_time --what admm --g-update fused_fast \\
+      --fused-layout lists --runs 8192 --repeat 3
   python -m admmnet_tpu_torch.cli.bench_time --what e2e --ckpt runs/train_net3_r05 \\
       --layers 3 --g-mode chebyshev --cheb-impl pallas
 """
@@ -45,6 +47,10 @@ def build_parser():
     p.add_argument("--iters", type=int, default=100, help="ADMM iterations")
     p.add_argument("--layers", type=int, default=10, help="net depth")
     p.add_argument("--g-update", default="newton_schulz")
+    p.add_argument("--fused-layout", default=None, choices=["lean", "lists"],
+                   help="the fused solve's escape hatch (the port's own flag): the lean "
+                        "layout's unfolded carry or the lists layout (K3), with the lean-only "
+                        "defaults off and a 4/3 cold root")
     p.add_argument("--g-mode", default="eigh", choices=["eigh", "chebyshev"],
                    help="net GLayer mode (--what net / e2e)")
     p.add_argument("--cheb-degree", type=int, default=48)
@@ -91,11 +97,17 @@ def _solver_fn(args):
         return fn, (f"classical ADMM adaptive (eta={args.eta:g}, max {args.iters}, "
                     f"{args.g_update})")
     opts = ADMMOptions(g_update=args.g_update)
+    label = args.g_update
+    if args.fused_layout is not None:
+        opts = ADMMOptions(g_update=args.g_update, fused_layout=args.fused_layout,
+                           fused_fold_diag=False, fused_warm_root=False, fused_proj_iters=4,
+                           fused_inner_iters=3)
+        label += f", {args.fused_layout} layout, unfolded, 4/3 cold root"
 
     def fn(y, b, s):
         return torch.sum(torch.abs(admm_solve_fixed(y, b, s, args.iters, 1.0, opts)))
 
-    return fn, f"classical ADMM ({args.iters} iters, {args.g_update})"
+    return fn, f"classical ADMM ({args.iters} iters, {label})"
 
 
 def _net_fn(args, dev):

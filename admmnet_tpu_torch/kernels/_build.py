@@ -35,11 +35,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # Mr, Mi, Pr, Pi, scratch, B, P, coeffs, nsteps, hi_steps, bf16_store, stream
     "polar_psd_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
-    # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,
-    # lam_inv_sq, coeffs, nsteps, hi_steps, outer_iters, inner_iters,
-    # final_hi, warm_root, all_hi, three_pass, fold_diag, lists, ablate, stream
+    # yob_r, yob_i, w, A, phi_r, phi_i, B, n, P, num_iters, rho, lam_inv_sq,
+    # coeffs, nsteps, hi_steps, outer_iters, inner_iters, final_hi,
+    # warm_root, all_hi, three_pass, fold_diag, lists, ablate, stream
     "fused_admm_fast_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,

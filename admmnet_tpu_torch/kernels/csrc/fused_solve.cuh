@@ -1,12 +1,15 @@
-// The whole fixed-iteration ADMM solve of one instance in one thread block:
-// the kernel body shared by fused_admm_fast.cu with fused_admm_fast_p128.cu
-// (K2 lean, K3 lists; the Newton-waterline H-projection below) and
-// fused_admm.cu (K7; the nested bisection H-projection).  The H-projection
-// is the template's Proj policy:
+// The whole fixed-iteration ADMM solve of one instance in one thread block,
+// on SIMT fp32 FMAs: the kernel body of fused_admm.cu (K7, the first-
+// generation fused solve; the nested bisection H-projection).  K2 and K3
+// run on the tensor-core body of fused_solve_tc.cuh, which takes this
+// file's NewtonProjection, SolveParams and Layout; the launch templates and
+// the P = 128 declaration below are K7's and an earlier K2's, kept as they
+// were so that K7's code generation stays the same.  The H-projection is
+// the template's Proj policy:
 //   Proj::project(t, n, A, outer, inner, warm, lo, hi, h)
 // runs in warp 0 on the logical entries lane + 32 q (q < 4, masked to n).
 // The layout is a template parameter too, so that each instantiation
-// carries only its own dataflow (the production K2 is FOLDED).
+// carries only its own dataflow.
 //
 // Per iteration, per instance (B = [[diag h, phi], [phi^H, 1/lambda^2]]):
 //   phi  = w (y/b + rho g + z)         g, z: conj of row n of G and Z
@@ -24,22 +27,25 @@
 // (B, n) rows go in and the (B, n) phi rows come out.
 //
 // Bound on this card: arithmetic.  An iteration is 9 real P^3 products per
-// schedule step plus 3 closing ones (sched2: 21; K7's quintic-7: 66; 3x the
-// FMAs per product with three_pass).  The TPU kernels held ~1 MB of state
-// per instance in VMEM; an SM has 227 KB of shared memory, so here the Z, M
-// and schedule planes (11 x 49 KB at P = 112) live in a per-instance global
-// scratch that stays in L2 while the block runs, the row state (phi, the
-// carried rows, h, the bisection bracket) lives in shared memory, and the
-// products stream 16-deep shared-memory tiles into per-thread 7 x 7
-// register micro-tiles.  One block per instance and no interleave: at
-// B = 8192 the 132 SMs stay full.  The H-projection runs in warp 0 with
-// shuffle reductions while the other warps wait at a barrier.
+// schedule step plus 3 closing ones (K7's quintic-7: 66; 3x the FMAs per
+// product with three_pass).  The TPU kernels held ~1 MB of state per
+// instance in VMEM; an SM has 227 KB of shared memory, so here the Z, M
+// and schedule planes live in a per-instance global scratch: 11 planes of
+// 49 KB at P = 112, 552 KB a block.  One 256-thread block runs an SM (255
+// registers), so 132 resident blocks hold 72.9 MB against the card's 50 MB
+// L2: the working set does not stay in L2 (the hit rate is not measured).
+// The row state (phi, the carried rows, h, the bisection bracket) lives in
+// shared memory, and the products stream 16-deep shared-memory tiles into
+// per-thread 7 x 7 register micro-tiles.  One block per instance and no
+// interleave.  The H-projection runs in warp 0 with shuffle reductions
+// while the other warps wait at a barrier.
 //
-// The folded instantiation is the production kernel, and its code
-// generation is sensitive to spelling: the forms below of its phi update,
-// of its t read and of B's entries in the M pass (written out, not through
-// lifted_b) ran 1% faster at B = 8192 x 100 on an H100 than equivalent
-// ones, with the same SASS instruction count within 0.2%.
+// The folded instantiation was K2's production kernel before the tensor-
+// core body, and its code generation was sensitive to spelling: the forms
+// below of its phi update, of its t read and of B's entries in the M pass
+// (written out, not through lifted_b) ran 1% faster at B = 8192 x 100 on
+// an H100 than equivalent ones, with the same SASS instruction count
+// within 0.2%.
 #pragma once
 
 #include "common.cuh"
@@ -50,10 +56,6 @@ constexpr int FUSED_PLANES = 11;  // Zr, Zi, Mr, Mi, then the 7 SignPlanes
 
 // FOLDED: lean with fold_diag; LEAN: lean, unfolded carry; LISTS: lists.
 enum Layout { FOLDED, LEAN, LISTS };
-
-// K2's profiling variants (LEAN only), in the order of the wrapper's
-// ABLATE names: each removes one component of the iteration.
-enum Ablate { AB_NONE, AB_CORNER, AB_DIAG, AB_H, AB_NORM, AB_ASSEMBLE, AB_ZUPD, AB_FINALS };
 
 struct SolveParams {
   int n, num_iters, hi_steps, outer_iters, inner_iters;
@@ -175,7 +177,7 @@ __device__ __forceinline__ void lifted_b(int r, int c, int n, const float* h, co
   }
 }
 
-template <int P, class Proj, int LAYOUT, int ABLATE = AB_NONE>
+template <int P, class Proj, int LAYOUT>
 __global__ void __launch_bounds__(NT) fused_solve_kernel(
     const float* __restrict__ yob_r, const float* __restrict__ yob_i,
     const float* __restrict__ w_in, const float* __restrict__ A_in, float* phi_r_out,
@@ -192,11 +194,7 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
   const int tid = threadIdx.x;
   const int ty = tid / TS, tx = tid % TS;
   const size_t row0 = static_cast<size_t>(blockIdx.x) * n;
-  // ablate "assemble" carries the G planes too
-  constexpr int PLANES = ABLATE == AB_ASSEMBLE ? FUSED_PLANES + 2 : FUSED_PLANES;
-  float* base = scratch + static_cast<size_t>(blockIdx.x) * PLANES * P * P;
-  float* Gr = base + FUSED_PLANES * P * P;
-  float* Gi = Gr + P * P;
+  float* base = scratch + static_cast<size_t>(blockIdx.x) * FUSED_PLANES * P * P;
   float* Zr = base;
   float* Zi = base + 1 * P * P;
   float* Mr = base + 2 * P * P;
@@ -225,7 +223,6 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
   for (int e = tid; e < P * P; e += NT) {
     Zr[e] = 0.f;
     Zi[e] = 0.f;
-    if constexpr (ABLATE == AB_ASSEMBLE) Gr[e] = Gi[e] = 0.f;
   }
   if (tid == 0) {
     s_lo = 0.f;
@@ -244,11 +241,9 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
         s_phi[l] = l < n ? s_w[l] * (s_yi[l] - ai) : 0.f;
         continue;
       } else if (l < n) {
-        // corner column by the Hermitian row read: g = conj(G[n, :]);
-        // ablate "corner": the previous phi stands in for both rows
-        const bool ab = ABLATE == AB_CORNER;
-        const float gr = ab ? s_phr[l] : s_cr[l], gi = ab ? s_phi[l] : -s_ci[l];
-        const float zr = ab ? s_phr[l] : Zr[n * P + l], zi = ab ? s_phi[l] : -Zi[n * P + l];
+        // corner column by the Hermitian row read: g = conj(G[n, :])
+        const float gr = s_cr[l], gi = -s_ci[l];
+        const float zr = Zr[n * P + l], zi = -Zi[n * P + l];
         pr = s_w[l] * ((s_yr[l] + (rho1 ? gr : rho * gr)) + zr);
         pi = s_w[l] * ((s_yi[l] + (rho1 ? gi : rho * gi)) + zi);
       }
@@ -267,23 +262,13 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
         if constexpr (fold) {
           v = l < n ? s_cd[l] : 0.f;
         } else if (l < n) {
-          if constexpr (ABLATE == AB_DIAG) {
-            v = s_phr[l];
-          } else {
-            const float zd = Zr[l * P + l];
-            v = s_cd[l] + (rho1 ? zd : zd / rho);
-          }
+          const float zd = Zr[l * P + l];
+          v = s_cd[l] + (rho1 ? zd : zd / rho);
         }
         t[q] = v;
       }
       float lo = s_lo, hi = s_hi;
-      if constexpr (ABLATE == AB_H) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) h[q] = t[q];
-      } else {
-        Proj::project(t, n, A, prm.outer_iters, prm.inner_iters, prm.warm_root != 0, lo, hi,
-                      h);
-      }
+      Proj::project(t, n, A, prm.outer_iters, prm.inner_iters, prm.warm_root != 0, lo, hi, h);
 #pragma unroll
       for (int q = 0; q < 4; ++q) s_h[tid + 32 * q] = h[q];
       __syncwarp();
@@ -319,10 +304,6 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
         const float zr = Zr[idx], zi = Zi[idx];
         float mr = br - (rho1 ? zr : zr / rho);
         float mi = bi - (rho1 ? zi : zi / rho);
-        if constexpr (ABLATE == AB_ASSEMBLE) {
-          mr = 0.5f * Gr[idx] - (rho1 ? zr : zr / rho);
-          mi = 0.5f * Gi[idx] - (rho1 ? zi : zi / rho);
-        }
         if constexpr (lists) {
           // (B - Z/rho)^T at (r, c): B's real part is symmetric, its
           // imaginary part antisymmetric
@@ -336,8 +317,7 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
         Mi[idx] = mi;
         fro += mr * mr + mi * mi;
       }
-    float inv = 1.f / 64.f;  // ablate "norm": the fixed scaling
-    if constexpr (ABLATE != AB_NORM) inv = 1.f / fmaxf(sqrtf(block_sum<P>(sm, fro)), 1e-30f);
+    const float inv = 1.f / fmaxf(sqrtf(block_sum<P>(sm, fro)), 1e-30f);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -351,8 +331,7 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
     sign_schedule<P>(sm, w, sched, prm.hi_steps, prm.all_hi != 0, prm.three_pass != 0);
 
     float ar[MT][MT], ai[MT][MT];
-    if constexpr (ABLATE != AB_FINALS)
-      abs_product<P>(sm, w, Mr, Mi, prm.final_hi != 0 && prm.three_pass != 0, ar, ai);
+    abs_product<P>(sm, w, Mr, Mi, prm.final_hi != 0 && prm.three_pass != 0, ar, ai);
     if constexpr (lists) {
       // G' = herm((M + A) / 2); Z' = Z + rho (G' - B)
 #pragma unroll
@@ -388,9 +367,8 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
         for (int j = 0; j < MT; ++j) {
           const int r = ty + TS * i, c = tx + TS * j, idx = r * P + c;
           const float mr = Mr[idx], mi = Mi[idx];
-          // ablate "finals": G' is the sign iterate
-          const float pr = ABLATE == AB_FINALS ? w.Xr[idx] : 0.5f * (mr + ar[i][j]);
-          const float pi = ABLATE == AB_FINALS ? w.Xi[idx] : 0.5f * (mi + ai[i][j]);
+          const float pr = 0.5f * (mr + ar[i][j]);
+          const float pi = 0.5f * (mi + ai[i][j]);
           // the next iteration reads A (fold_diag) or G'
           const float cr = fold ? ar[i][j] : pr, ci = fold ? ai[i][j] : pi;
           if (r == c) s_cd[c] = cr;
@@ -398,36 +376,26 @@ __global__ void __launch_bounds__(NT) fused_solve_kernel(
             s_cr[c] = cr;
             s_ci[c] = ci;
           }
-          if constexpr (ABLATE == AB_ZUPD) {
-            Zr[idx] = pr;
-            Zi[idx] = pi;
-          } else {
-            Zr[idx] = rho1 ? pr - mr : rho * (pr - mr);
-            Zi[idx] = rho1 ? pi - mi : rho * (pi - mi);
-          }
-          if constexpr (ABLATE == AB_ASSEMBLE) {
-            Gr[idx] = pr;
-            Gi[idx] = pi;
-          }
+          Zr[idx] = rho1 ? pr - mr : rho * (pr - mr);
+          Zi[idx] = rho1 ? pi - mi : rho * (pi - mi);
         }
     }
     __syncthreads();
   }
 
   // phi of the last iteration (computed from the pre-update state)
-  // an ablation's debug output reads the final G' row n: the chain stays live
   for (int l = tid; l < n; l += NT) {
-    phi_r_out[row0 + l] = ABLATE == AB_NONE ? s_phr[l] : s_phr[l] + 0.f * s_cr[l];
+    phi_r_out[row0 + l] = s_phr[l];
     phi_i_out[row0 + l] = s_phi[l];
   }
 }
 
 // Launch of the solve with plane side P on io.B blocks; the caller checks
 // B, n and nsteps.  Returns the launch's cudaError_t.
-template <int P, class Proj, int LAYOUT, int ABLATE = AB_NONE>
+template <int P, class Proj, int LAYOUT>
 int launch_fused_solve(const SolveIO& io, const SolveParams& prm, const Schedule& sched,
                        void* stream) {
-  fused_solve_kernel<P, Proj, LAYOUT, ABLATE><<<io.B, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_solve_kernel<P, Proj, LAYOUT><<<io.B, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       io.yob_r, io.yob_i, io.w, io.A, io.phi_r, io.phi_i, io.scratch, prm, sched);
   return static_cast<int>(cudaGetLastError());
 }
@@ -447,41 +415,9 @@ int launch_fused_layout(int layout, const SolveIO& io, const SolveParams& prm,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2's profiling variants of the unfolded lean layout, ablate in
-// AB_CORNER .. AB_FINALS.
-template <int P>
-int launch_ablate(int ablate, const SolveIO& io, const SolveParams& prm, const Schedule& sched,
-                  void* stream) {
-  using NP = NewtonProjection;
-  switch (ablate) {
-    case AB_CORNER:
-      return launch_fused_solve<P, NP, LEAN, AB_CORNER>(io, prm, sched, stream);
-    case AB_DIAG:
-      return launch_fused_solve<P, NP, LEAN, AB_DIAG>(io, prm, sched, stream);
-    case AB_H:
-      return launch_fused_solve<P, NP, LEAN, AB_H>(io, prm, sched, stream);
-    case AB_NORM:
-      return launch_fused_solve<P, NP, LEAN, AB_NORM>(io, prm, sched, stream);
-    case AB_ASSEMBLE:
-      return launch_fused_solve<P, NP, LEAN, AB_ASSEMBLE>(io, prm, sched, stream);
-    case AB_ZUPD:
-      return launch_fused_solve<P, NP, LEAN, AB_ZUPD>(io, prm, sched, stream);
-    case AB_FINALS:
-      return launch_fused_solve<P, NP, LEAN, AB_FINALS>(io, prm, sched, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // K2/K3 at P = 128 (113 <= n + 1 <= 128), defined in fused_admm_fast_p128.cu
 // so that the two plane sides compile in parallel.
 int fused_admm_fast_p128(int layout, const SolveIO& io, const SolveParams& prm,
                          const Schedule& sched, void* stream);
-
-// K2's profiling variants (LEAN, ablate in AB_CORNER .. AB_FINALS) at
-// P = 112 and 128, defined in fused_admm_fast_ablate{,_p128}.cu.
-int fused_admm_fast_ablate(int ablate, const SolveIO& io, const SolveParams& prm,
-                           const Schedule& sched, void* stream);
-int fused_admm_fast_ablate_p128(int ablate, const SolveIO& io, const SolveParams& prm,
-                                const Schedule& sched, void* stream);
 
 }  // namespace admmk

@@ -24,6 +24,16 @@
 // the operand sums are formed in fp32 before the split, so no temporary
 // plane is needed and the three real products accumulate in registers.
 //
+// Split-bf16 products (SPLIT): the 3-pass contract of common.cuh's split
+// product, x y ~ xh yh + xh yl + xl yh with xh = bf16_rn(x), xl = x - xh,
+// realized as xh y + xl yh: xh is exact in TF32, so xh y is two mma against
+// y's TF32 split, and xl yh two mma of xl's TF32 split against yh.  The
+// dropped xl yl is the contract's own; what the tensor cores add is fp32's
+// level (~2^-21).  Four mma per real product instead of three.  A split
+// product that must drop the same terms as a 4-multiplication complex
+// product (KARA = false: Cr = Lr Rr - Li Ri, Ci = Lr Ri + Li Rr) takes
+// that form instead of Karatsuba's.
+//
 // Warps: P / 16; warp w owns output columns [16 w, 16 w + 16) of the band,
 // two 8-column n-tiles, for every product.  Fragment and accumulator
 // layouts are PTX's for m16n8k8 .tf32: with g = lane / 4 and q = lane % 4,
@@ -33,6 +43,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -102,6 +113,44 @@ __device__ __forceinline__ void mma3_new(float (&d)[4], const AFrag& a, const BF
   mma(d, a.hi, b.hi);
 }
 
+// Split-bf16 fragments: a left value x = h + l1 + l2 with h = bf16_rn(x) and
+// (l1, l2) the TF32 split of x - h; a right value y = t1 + t2 (its TF32
+// split) with h = bf16_rn(y).
+struct SAFrag {
+  uint32_t h[4], l1[4], l2[4];
+};
+struct SBFrag {
+  uint32_t t1[2], t2[2], h[2];
+};
+
+__device__ __forceinline__ uint32_t to_bf16(float x) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
+}
+
+__device__ __forceinline__ void split_left(float x, uint32_t& h, uint32_t& l1, uint32_t& l2) {
+  h = to_bf16(x);
+  split(x - __uint_as_float(h), l1, l2);  // x - h is exact
+}
+
+__device__ __forceinline__ void split_right(float y, uint32_t& t1, uint32_t& t2, uint32_t& h) {
+  split(y, t1, t2);
+  h = to_bf16(y);
+}
+
+// d (+)= xh y + xl yh, the small terms first
+__device__ __forceinline__ void mmabf(float (&d)[4], const SAFrag& a, const SBFrag& b) {
+  mma(d, a.l2, b.h);
+  mma(d, a.l1, b.h);
+  mma(d, a.h, b.t2);
+  mma(d, a.h, b.t1);
+}
+__device__ __forceinline__ void mmabf_new(float (&d)[4], const SAFrag& a, const SBFrag& b) {
+  mma_new(d, a.l2, b.h);
+  mma(d, a.l1, b.h);
+  mma(d, a.h, b.t2);
+  mma(d, a.h, b.t1);
+}
+
 // Fragments of a complex operand: real part, imaginary part, their sum.
 struct CAFrag {
   AFrag r, i, s;
@@ -109,7 +158,14 @@ struct CAFrag {
 struct CBFrag {
   BFrag r, i, s;
 };
-// Karatsuba accumulators of one complex n-tile.
+struct CSAFrag {
+  SAFrag r, i, s;
+};
+struct CSBFrag {
+  SBFrag r, i, s;
+};
+// Karatsuba accumulators of one complex n-tile (the 4-multiplication form
+// keeps Lr Ri + Li Rr in t3).
 struct CAcc {
   float t1[4], t2[4], t3[4];
 };
@@ -135,6 +191,7 @@ __device__ __forceinline__ void fold(CAcc& acc, const CAcc& part) {
 // (Cr, Ci) of element e from the Karatsuba accumulators
 __device__ __forceinline__ float acc_re(const CAcc& c, int e) { return c.t1[e] - c.t2[e]; }
 __device__ __forceinline__ float acc_im(const CAcc& c, int e) { return c.t3[e] - c.t1[e] - c.t2[e]; }
+__device__ __forceinline__ float acc_im4(const CAcc& c, int e) { return c.t3[e]; }
 
 // Left fragment at columns [k0, k0 + 8) of a band plane pair.
 template <int SA>
@@ -174,6 +231,51 @@ __device__ __forceinline__ void karatsuba_mma(CAcc& c, const CAFrag& a, const CB
   mma3_new(c.t3, a.s, b.s);
 }
 
+// Split-bf16 fragments at the same positions as load_a / load_b; KARA also
+// splits the operand sums.
+template <int SA, bool KARA>
+__device__ __forceinline__ void load_a_bf(CSAFrag& f, const float* Lr, const float* Li, int k0,
+                                          int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[4] = {g * SA + k0 + q, (g + 8) * SA + k0 + q, g * SA + k0 + q + 4,
+                      (g + 8) * SA + k0 + q + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr = Lr[idx[e]], xi = Li[idx[e]];
+    split_left(xr, f.r.h[e], f.r.l1[e], f.r.l2[e]);
+    split_left(xi, f.i.h[e], f.i.l1[e], f.i.l2[e]);
+    if (KARA) split_left(xr + xi, f.s.h[e], f.s.l1[e], f.s.l2[e]);
+  }
+}
+
+template <int SB, bool KARA>
+__device__ __forceinline__ void load_b_bf(CSBFrag& f, const float* Sr, const float* Si, int k0,
+                                          int n0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[2] = {(k0 + q) * SB + n0 + g, (k0 + q + 4) * SB + n0 + g};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float xr = Sr[idx[e]], xi = Si[idx[e]];
+    split_right(xr, f.r.t1[e], f.r.t2[e], f.r.h[e]);
+    split_right(xi, f.i.t1[e], f.i.t2[e], f.i.h[e]);
+    if (KARA) split_right(xr + xi, f.s.t1[e], f.s.t2[e], f.s.h[e]);
+  }
+}
+
+// c = one 8-deep step's split-bf16 products, fresh: Karatsuba's three, or
+// the 4-multiplication form's t1 = Lr Rr, t2 = Li Ri, t3 = Lr Ri + Li Rr
+template <bool KARA>
+__device__ __forceinline__ void split_mma(CAcc& c, const CSAFrag& a, const CSBFrag& b) {
+  mmabf_new(c.t1, a.r, b.r);
+  mmabf_new(c.t2, a.i, b.i);
+  if (KARA) {
+    mmabf_new(c.t3, a.s, b.s);
+  } else {
+    mmabf_new(c.t3, a.r, b.i);
+    mmabf(c.t3, a.i, b.r);
+  }
+}
+
 // C_l = L_l R for NL local left bands (Lr[l], Li[l]: band planes in this
 // CTA's shared memory) and the right operand R whose band q lies in CTA q's
 // planes at the offsets of this CTA's (Rr, Ri).  Only the first ceil(m / 16)
@@ -181,8 +283,10 @@ __device__ __forceinline__ void karatsuba_mma(CAcc& c, const CAFrag& a, const CB
 // n-tile j of this warp's columns of C_l.  stage: 4 SLICE floats (two
 // buffers of two planes).  Every thread of the CTA must call it; it starts
 // with a barrier, so the caller may rewrite the stage right before, and it
-// leaves the left and right planes untouched.
-template <int P, int NL>
+// leaves the left and right planes untouched.  SPLIT: split-bf16 products
+// (Karatsuba's, or with KARA = false the 4-multiplication form, whose
+// imaginary part is acc_im4).
+template <int P, int NL, bool SPLIT = false, bool KARA = true>
 __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* Rr,
                                              float* Ri, const float* const (&Lr)[NL],
                                              const float* const (&Li)[NL], float* stage, int m,
@@ -230,19 +334,37 @@ __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* 
     if (i + 1 < nbands) fetch(band(i + 1));
 #pragma unroll
     for (int kk = 0; kk < BAND; kk += 8) {
-      CBFrag b[NPW];
+      if constexpr (SPLIT) {
+        CSBFrag b[NPW];
 #pragma unroll
-      for (int j = 0; j < NPW; ++j)
-        load_b<L::SB>(b[j], st, st + L::SLICE, kk, warp * 16 + 8 * j, lane);
+        for (int j = 0; j < NPW; ++j)
+          load_b_bf<L::SB, KARA>(b[j], st, st + L::SLICE, kk, warp * 16 + 8 * j, lane);
 #pragma unroll
-      for (int l = 0; l < NL; ++l) {
-        CAFrag a;
-        load_a<L::SA>(a, Lr[l], Li[l], q * BAND + kk, lane);
+        for (int l = 0; l < NL; ++l) {
+          CSAFrag a;
+          load_a_bf<L::SA, KARA>(a, Lr[l], Li[l], q * BAND + kk, lane);
 #pragma unroll
-        for (int j = 0; j < NPW; ++j) {
-          CAcc part;
-          karatsuba_mma(part, a, b[j]);
-          fold(acc[l][j], part);
+          for (int j = 0; j < NPW; ++j) {
+            CAcc part;
+            split_mma<KARA>(part, a, b[j]);
+            fold(acc[l][j], part);
+          }
+        }
+      } else {
+        CBFrag b[NPW];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+          load_b<L::SB>(b[j], st, st + L::SLICE, kk, warp * 16 + 8 * j, lane);
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          CAFrag a;
+          load_a<L::SA>(a, Lr[l], Li[l], q * BAND + kk, lane);
+#pragma unroll
+          for (int j = 0; j < NPW; ++j) {
+            CAcc part;
+            karatsuba_mma(part, a, b[j]);
+            fold(acc[l][j], part);
+          }
         }
       }
     }

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from admmnet_tpu_torch.kernels.fused_admm_fast import (
-    SCRATCH_PLANES,
     check_launch,
     check_rows,
     solve_inputs,
@@ -32,6 +31,7 @@ from admmnet_tpu_torch.kernels.fused_admm_fast import (
 from admmnet_tpu_torch.kernels.polar import LaunchCounter, padded_side
 from admmnet_tpu_torch.ops.projections import POLAR_QUINTIC_SCHEDULE, project_l1_ball
 
+SCRATCH_PLANES = 11  # fused_solve.cuh's per-block planes: Z, M, the sign schedule's 7
 launches = LaunchCounter()
 
 

@@ -12,12 +12,14 @@ admm_solve_fused_fast``, both layouts:
   Z' = Z + rho (G' - B), a cold root-finder.
 
 ``admm_solve_fused_fast`` launches the CUDA kernel of
-``csrc/fused_admm_fast.cu`` for CUDA tensors and runs
+``csrc/fused_admm_fast.cu`` (body ``csrc/fused_solve_tc.cuh``: one
+thread-block cluster per instance, the working planes in the cluster's
+shared memory, every product on the tensor cores) for CUDA tensors and runs
 ``admm_solve_fused_fast_plain`` for CPU tensors; the plain version is the
 kernel's dataflow in batched torch ops (carried rows, bracket, split
 products), not the per-step scan path of ``solver.admm``.  The kernel keeps
-only Z as planes: of G it keeps the diagonal and row n, which is all the
-next iteration reads.
+Z in registers: of G it keeps the diagonal and row n, which is all the
+next iteration reads.  Only the (B, n) rows go in and phi comes out.
 
 ``ablate`` (profiling only: any value but ``"none"`` returns a wrong phi by
 design) removes one component of the unfolded lean iteration, as the JAX
@@ -33,9 +35,10 @@ non-finite value through as JAX's debug output does.
 Precision rule (kernel and plain version alike): a schedule step is "hi"
 iff ``all_hi or s >= nsteps - hi_steps``, the closing products iff
 ``final_hi``; a hi product is the 3-pass split-bf16 product when
-``three_pass``, every other product is IEEE fp32; the iterate is
+``three_pass``, every other product is fp32 (IEEE in the plain version,
+3xTF32 on the kernel's tensor cores, fp32's accuracy); the iterate is
 re-projected onto the Hermitian subspace after a step iff it is not hi or
-``three_pass``.
+``three_pass``.  The kernel runs the ablate variants without three_pass.
 """
 
 from __future__ import annotations
@@ -54,7 +57,6 @@ from admmnet_tpu_torch.kernels.polar import (
 )
 from admmnet_tpu_torch.ops.projections import POLAR_BF16_POLISH, POLAR_BF16_SCHEDULE
 
-SCRATCH_PLANES = 11
 BIG = 3e37  # "no bracket yet": the next clamp falls back to the global one
 NORM_ABLATED_INV = 1.0 / 64.0  # ablate="norm": the fixed Frobenius scaling
 
@@ -338,14 +340,15 @@ def admm_solve_fused_fast(
 ) -> torch.Tensor:
     """Fixed-iteration solve of (B, n) complex64 instances; phi (B, n).
 
-    CUDA tensors launch the kernel (one thread block per instance, the
-    whole loop inside it); CPU tensors run ``admm_solve_fused_fast_plain``.
+    CUDA tensors launch the kernel (one thread-block cluster per instance,
+    the whole loop inside it); CPU tensors run
+    ``admm_solve_fused_fast_plain``.
     ``kblk`` (the TPU kernel's instance interleave) and ``loop_unroll`` (a
     Mosaic loop-unroll factor, no arithmetic) have no effect on Hopper.
     The argument guards are the JAX wrapper's; ``ablate`` selects a
     profiling variant (module docstring), an instantiation of its own.
     """
-    del kblk, loop_unroll  # one thread block per instance, loop not unrolled
+    del kblk, loop_unroll  # one cluster per instance, loop not unrolled
     check_variant(layout, ablate, fold_diag, warm_root, all_hi, three_pass)
     check_rows(y, b)
     B, n = y.shape
@@ -357,6 +360,8 @@ def admm_solve_fused_fast(
     if y.device.type == "cpu":
         return admm_solve_fused_fast_plain(y, b, sigma, num_iters, rho, lambda_val, **kw)
     check_launch(y, b, sigma)
+    if ablate != "none" and three_pass:
+        raise ValueError("the kernel runs the ablate variants without three_pass")
     from admmnet_tpu_torch.kernels import _build
 
     sched = full_schedule(schedule, hi_steps, all_hi)
@@ -365,15 +370,13 @@ def admm_solve_fused_fast(
     phi_i = torch.empty_like(phi_r)
     if B == 0:
         return torch.complex(phi_r, phi_i)
-    planes = SCRATCH_PLANES + (2 if ablate == "assemble" else 0)  # + G planes
-    scratch = torch.empty((B, planes, P, P), dtype=torch.float32, device=y.device)
     coeffs = np.ascontiguousarray(sched, dtype=np.float32)
     lists = layout == "lists"
     lib = _build.lib()
     with torch.cuda.device(y.device):
         err = lib.fused_admm_fast_launch(
             yob_r.data_ptr(), yob_i.data_ptr(), w.data_ptr(), A.data_ptr(),
-            phi_r.data_ptr(), phi_i.data_ptr(), scratch.data_ptr(),
+            phi_r.data_ptr(), phi_i.data_ptr(),
             B, n, P, int(num_iters), float(rho), float(1.0 / lambda_val**2),
             coeffs.ctypes.data, len(sched), int(hi_steps), int(outer_iters),
             int(inner_iters), int(final_hi), int(warm_root), int(all_hi),

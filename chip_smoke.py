@@ -12,8 +12,8 @@ and holding each kernel against its plain PyTorch version:
   (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
   random-SNR scenes, held against the JAX package's golden output;
 - training (phases 14-17): the Clenshaw training forward K5 and reversible
-  backward K6 (tensor-core products; phase 2 also counts its HMMA
-  instructions) against their plain versions, three recipe steps of net-3
+  backward K6 (tensor-core products; phase 2 counts the HMMA instructions
+  of K6 and of every K2/K3 instantiation) against their plain versions, three recipe steps of net-3
   against the JAX package's golden steps, then ``generate_dataset`` and
   ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
   on the card through the native minibatch loader, scored against the
@@ -23,7 +23,8 @@ and holding each kernel against its plain PyTorch version:
   escape hatch ``ADMMOptions(fused_layout="lists", ...)`` (anchor and
   random-scene gates), the first-generation fused solve K7 against its
   plain version, the per-step polar solve and the eigh golden, K1's bf16
-  iterate storage, the ``bench_time`` CLI, and their timings.
+  iterate storage, the ``bench_time`` CLI, and their timings; then K2's
+  subtraction profile by its ``ablate`` variants (phase 25).
 
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
@@ -459,6 +460,31 @@ def solve_flops(n_inst_iters: int, nsteps: int, n: int = 100) -> float:
     return n_inst_iters * (9 * nsteps + 3) * 2.0 * (n + 1) ** 3
 
 
+def tc_solve_smem_bytes(P: int) -> int:
+    """fused_solve_tc.cuh's dynamic shared memory a CTA: 8 band planes of
+    16 (P + 4) floats, the staging double buffer of 4 x 16 (P + 8), 10 rows
+    of 128 and 80 slot floats."""
+    return 4 * (8 * 16 * (P + 4) + 4 * 16 * (P + 8) + 10 * 128 + 80)
+
+
+def demangle(name: str) -> str:
+    """A C++ symbol's readable name (c++filt where the machine has it)."""
+    import shutil
+
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    out = subprocess.run([tool, name], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or name
+
+
+def tf32x3_bound(flops: float, nbytes: float):
+    """(bound ms, what bounds it) of fp32-faithful products run in 3xTF32
+    on the tensor cores: three TF32 products per useful one."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def solve_bytes(B: int, n: int = 100) -> float:
     """A fused solve reads its (B, n) rows (y/b, w) and A once and writes phi."""
     return B * ((3 * n + 1) * 4 + n * 8)
@@ -546,7 +572,8 @@ class Smoke:
         t0 = time.time()
         _build.lib()
         secs = time.time() - t0
-        log(f"[2 build] K1 polar.cu + K2/K3 fused_admm_fast.cu (P = 128: fused_admm_fast_p128.cu)"
+        log(f"[2 build] K1 polar.cu + K2/K3 fused_admm_fast.cu (P = 128: fused_admm_fast_p128.cu;"
+            f" ablate: fused_admm_fast_ablate{{,_p128}}.cu; body fused_solve_tc.cuh)"
             f" + K7 fused_admm.cu + K4/K5 cheb_filter.cu + K6 cheb_bwd.cu, one nvcc each in "
             f"parallel: {secs:.1f} s (nvcc "
             f"{_build.build_seconds}) -> "
@@ -555,12 +582,19 @@ class Smoke:
             log("[2 build] nvcc wall seconds per source: " + ", ".join(
                 f"{name} {secs:.1f}" for name, secs in sorted(_build.compile_seconds.items())))
         for name, text in _build.build_logs.items():
+            entry = ""
             for ln in text.splitlines():
-                if "registers" in ln or "spill" in ln:
-                    log(f"[2 build]   {name} ptxas {ln.strip()}")
+                if "Compiling entry function" in ln:
+                    entry = demangle(ln.split("'")[1])
+                elif "registers" in ln or "spill" in ln:
+                    log(f"[2 build]   {name} {entry}: ptxas {ln.strip()}")
+        for P in (112, 128):
+            log(f"[2 build] K2/K3 dynamic shared memory a CTA at P = {P}: "
+                f"{tc_solve_smem_bytes(P)} B (fused_solve_tc.cuh's count)")
 
-    def k6_sass(self):
-        """K6's products reach the tensor cores: HMMA instructions in its SASS."""
+    def tc_sass(self):
+        """K6's and every K2/K3 instantiation's products reach the tensor
+        cores: HMMA instructions in their SASS."""
         import re
         import shutil
 
@@ -572,12 +606,17 @@ class Smoke:
         found = {}
         for block in re.split(r"\n\s*Function : ", sass)[1:]:
             name = block.split("\n", 1)[0].strip()
-            if "cheb_bwd_kernel" in name:
+            if "cheb_bwd_kernel" in name or "fused_tc_kernel" in name:
                 found[name] = (block.count("HMMA"), block.count("LDL"), block.count("STL"))
         for name, (hmma, ldl, stl) in sorted(found.items()):
-            log(f"[2 K6 SASS] {name}: {hmma} HMMA, {ldl} LDL / {stl} STL (local memory)")
-        check(len(found) == 2 and all(h > 0 for h, _, _ in found.values()),
-              "K6's SASS has no tensor-core (HMMA) instruction")
+            key = "K6" if "cheb_bwd_kernel" in name else "K2/K3"
+            log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
+                f"(local memory)")
+        k6 = [h for name, (h, _, _) in found.items() if "cheb_bwd_kernel" in name]
+        k23 = [h for name, (h, _, _) in found.items() if "fused_tc_kernel" in name]
+        # K2/K3: 5 instantiations and 7 ablate variants at each of P = 112, 128
+        check(len(k6) == 2 and len(k23) == 24 and min(k6 + k23) > 0,
+              "a tensor-core kernel's SASS has no HMMA instruction")
 
     # 3 -------------------------------------------------------------------
     def k1_vs_plain(self):
@@ -790,11 +829,14 @@ class Smoke:
         k2 = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
         k2p = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
         n_ii = B_TIME_K2 * ITERS
-        k2_bound, k2_by = bound(solve_flops(n_ii, len(kw["schedule"])), solve_bytes(B_TIME_K2))
+        flops = solve_flops(n_ii, len(kw["schedule"]))
+        k2_bound, k2_by = tf32x3_bound(flops, solve_bytes(B_TIME_K2))
+        k2_fp32, _ = bound(flops, solve_bytes(B_TIME_K2))
         log(f"[9 time K2 fused_fast] B={B_TIME_K2} x {ITERS}: kernel {k2:.1f} ms "
             f"({n_ii / k2 * 1e3:.0f} inst-iter/s), plain {k2p:.1f} ms "
-            f"({n_ii / k2p * 1e3:.0f} inst-iter/s); bound {k2_bound:.1f} ms "
-            f"({k2_by}) {tag}")
+            f"({n_ii / k2p * 1e3:.0f} inst-iter/s); 3xTF32 tensor-core bound {k2_bound:.1f} ms "
+            f"({k2_by}; {k2_bound / k2:.1%} of it), fp32 SIMT bound {k2_fp32:.1f} ms "
+            f"({k2_fp32 / k2:.1%} of it) {tag}")
         self.kernels["K2"].update(ms=k2, plain_ms=k2p, bound_ms=k2_bound, bound_by=k2_by,
                                   library_ms=None)
 
@@ -826,7 +868,7 @@ class Smoke:
                 "time above stands alone")
             return
         busy, window_us, kernels = prof
-        k2_us = sum(t for name, t in kernels if "fused_solve" in name)
+        k2_us = sum(t for name, t in kernels if "fused_tc_kernel" in name)
         top = "; ".join(f"{name[:48]} {t / busy:.1%}" for name, t in kernels[:5])
         log(f"[9 profile deploy] B={B_TIME_K2}: device busy {busy / 1e3:.2f} ms of a "
             f"{window_us / 1e3:.2f} ms window ({busy / window_us:.1%}); K2 {k2_us / busy:.1%} "
@@ -1506,10 +1548,12 @@ class Smoke:
             kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
             ms = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
             pms = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
-            bms, by = bound(solve_flops(n_ii, len(kw["schedule"])), solve_bytes(B_TIME_K2))
+            flops = solve_flops(n_ii, len(kw["schedule"]))
+            bms, by = tf32x3_bound(flops, solve_bytes(B_TIME_K2))
+            fp32_ms, _ = bound(flops, solve_bytes(B_TIME_K2))
             log(f"[23 time {key} {layout}, unfolded] B={B_TIME_K2} x {ITERS}, sched2, 4/3 cold: "
                 f"kernel {ms:.1f} ms ({n_ii / ms * 1e3:.0f} inst-iter/s), plain {pms:.1f} ms; "
-                f"bound {bms:.1f} ms ({by}) {tag}")
+                f"3xTF32 bound {bms:.1f} ms ({by}), fp32 SIMT bound {fp32_ms:.1f} ms {tag}")
             if key == "K3":
                 self.kernels["K3"].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                                           library_ms=None)
@@ -1544,7 +1588,7 @@ def main() -> int:
     sm = Smoke()
     sm.device()
     sm.build()
-    sm.k6_sass()
+    sm.tc_sass()
     sm.k1_vs_plain()
     sm.k2_vs_plain()
     # 8: the main path's launches are counted from here to the end of phase 7

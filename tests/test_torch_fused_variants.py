@@ -230,6 +230,28 @@ def test_bench_time_repeat(capsys):
     assert len(calls) == 1 and len(calls[0].split()[2:]) == 2
 
 
+def test_bench_time_fused_layout(capsys, monkeypatch):
+    """--fused-layout lists times K3's escape hatch: the solver's lists
+    layout with the lean-only defaults off and a 4/3 cold root."""
+    import admmnet_tpu_torch.solver as solver
+    from admmnet_tpu_torch.cli import bench_time
+
+    seen, solve = [], solver.admm_solve_fixed
+
+    def spy(y, b, s, iters, rho, opts):
+        seen.append(opts)
+        return solve(y, b, s, iters, rho, opts)
+
+    monkeypatch.setattr(solver, "admm_solve_fixed", spy)
+    bench_time.main(["--what", "admm", "--g-update", "fused_fast", "--fused-layout", "lists",
+                     "--runs", "2", "--iters", "2", "--device", "cpu"])
+    txt = capsys.readouterr().out
+    assert "fused_fast, lists layout, unfolded, 4/3 cold root" in txt
+    assert seen and all(
+        (o.fused_layout, o.fused_fold_diag, o.fused_warm_root, o.fused_proj_iters,
+         o.fused_inner_iters) == ("lists", False, False, 4, 3) for o in seen)
+
+
 def test_bench_time_e2e(capsys):
     from admmnet_tpu_torch.cli.bench_time import main
 
