@@ -304,18 +304,8 @@ def k6_inputs(kc, B: int, dev):
 
 
 def k6_call_ms(kc, M, c, Y, carries) -> list:
-    """ms of each of K6_REPS back-to-back K6 calls, by CUDA events between
-    them, after one warm call."""
-    fn = lambda: kc.cheb_bwd(M, c, carries, Y, CHEB_DEGREE)  # noqa: E731
-    fn()
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(K6_REPS + 1)]
-    events[0].record()
-    for e in events[1:]:
-        fn()
-        e.record()
-    events[-1].synchronize()
-    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    """ms of each of K6_REPS back-to-back K6 calls (call_ms)."""
+    return call_ms(lambda: kc.cheb_bwd(M, c, carries, Y, CHEB_DEGREE), K6_REPS)
 
 
 def anchor_like_batch(B: int, Nb: int, Nd: int, seed: int):
@@ -1038,25 +1028,12 @@ class Smoke:
     # 13 ------------------------------------------------------------------
     def profile(self):
         """torch.profiler over one net-3 forward at the timing batch."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        forward = self.net_forward
-        forward()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward()
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        kernels = [(e.key, e.device_time_total) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(t for _, t in kernels)
-        if busy == 0:
+        prof = device_profile(self.net_forward)
+        if prof is None:
             log("[13 profile net-3] torch.profiler shows no device time; the CUDA-event "
                 "times of phase 12 stand alone")
             return
-        kernels.sort(key=lambda kt: -kt[1])
+        busy, window_us, kernels = prof
         top = "; ".join(f"{name[:48]} {t / busy:.1%}" for name, t in kernels[:5])
         log(f"[13 profile net-3] B={B_TIME_NET[-1]}: device busy {busy / 1e3:.1f} ms of a "
             f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}); by device time: {top} "
@@ -1307,21 +1284,11 @@ class Smoke:
         log(f"[17 time train step] net-3 recipe, B=256: {sms:.1f} ms per step "
             f"({256 / sms * 1e3:.0f} scenes/s) {tag}")
 
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(batch, 0)
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        kernels = [(e.key, e.device_time_total) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(t for _, t in kernels)
-        if busy == 0:
+        prof = device_profile(lambda: step(batch, 0))
+        if prof is None:
             log("[17 profile train step] torch.profiler shows no device time")
             return
-        kernels.sort(key=lambda kt: -kt[1])
+        busy, window_us, kernels = prof
         top = "; ".join(f"{name[:40]} {t / busy:.1%}" for name, t in kernels[:6])
         log(f"[17 profile train step] B=256: device busy {busy / 1e3:.1f} ms of a "
             f"{window_us / 1e3:.1f} ms window ({busy / window_us:.1%}), {len(kernels)} kernel "
