@@ -62,15 +62,19 @@ def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
     assert _rel(Pk, psd_project_eigh(M)) < eigh_tol
 
 
+GRIDS = {10: (2, 5), 16: (4, 4), 111: (3, 37), 119: (7, 17), 126: (7, 18)}
+
+
 def _anchor_rows(n, dev):
     """64 instances of the anchor's three targets at side n: the anchor
-    batch at n = 100; at n = 119 (lifted side 120, plane side 128) the same
-    targets on a 7 x 17 grid with fresh QPSK symbols, 7 dB demodulation
-    errors and 20 dB noise, as make_anchor_batch builds them."""
+    batch at n = 100; at other sides the same targets on an Nb x Nd grid
+    (GRIDS; n = 119 is lifted side 120, plane side 128) with fresh QPSK
+    symbols, 7 dB demodulation errors and 20 dB noise, as
+    make_anchor_batch builds them."""
     if n == 100:
         rows = make_anchor_batch(64, "redemod", seed=0)
     else:
-        Nb, Nd = 7, 17
+        Nb, Nd = GRIDS[n]
         rng = np.random.default_rng(0)
         sym = np.exp(1j * (np.pi / 2 * rng.integers(0, 4, size=(64, n)) + np.pi / 4))
         noise = np.sqrt(10 ** -0.7 / 2) * (rng.standard_normal((64, n))
@@ -96,6 +100,21 @@ def test_fused_kernel_matches_plain(cuda, g_update, n):
     pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
     assert kf.launches.count == before + 1
     assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold_diag", [True, False])
+@pytest.mark.parametrize("n", [10, 16, 111, 126])
+def test_fused_kernel_edges_match_plain(cuda, n, fold_diag):
+    """Sides whose bands are mostly padding or whose row n opens or closes
+    a band, and a hi step without three_pass (the polish step: no
+    re-projection) with hi closing products."""
+    y, b, s = _anchor_rows(n, cuda)
+    kw = dict(hi_steps=1, outer_iters=4, inner_iters=3, final_hi=True, layout="lean",
+              fold_diag=fold_diag, warm_root=True)
+    pk = kf.admm_solve_fused_fast(y, b, s, 20, 1.3, 0.8, **kw)
+    assert bool(torch.all(torch.isfinite(torch.view_as_real(pk))))
+    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.3, 0.8, **kw)) < 1e-3
 
 
 @pytest.mark.cuda
