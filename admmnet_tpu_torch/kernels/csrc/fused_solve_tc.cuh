@@ -53,8 +53,10 @@
 // CTA, and each CTA finishes ||M||_F itself); 1 to publish X and M; per
 // schedule step 4 (X^2 | X^4 | X Y | the re-projection's transposed reads),
 // 3 without re-projection; 1 for the closing product's transposed reads.
-// sched2 (two re-projected steps): 11.  While warp 0 projects, the SM's other
-// CTA (another instance) keeps the tensor cores busy.
+// sched2 (two re-projected steps): 11.  The projection is a serial chain in
+// warp 0; the SM's other CTA (another instance) can use the SM meanwhile,
+// but with ~37 instances in flight it still costs ~6% of an iteration at a
+// cold 4/3 root (chip_smoke.py --profile-k2 on an H100).
 #pragma once
 
 #include "fused_solve.cuh"
