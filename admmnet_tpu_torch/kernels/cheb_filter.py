@@ -8,9 +8,11 @@ Counterparts of ``admmnet_tpu/kernels/cheb_filter.py``:
 - K5, ``_cheb_fwd_with_residuals`` (the training forward): the same kernel,
   which then also writes the final Clenshaw carries (b_1, b_2);
 - K6, ``_cheb_bwd`` (the reversible, checkpoint-free backward): the CUDA
-  kernel of ``csrc/cheb_bwd.cu``, one thread-block cluster per matrix with
-  its working planes in the cluster's shared memory and every product on
-  the tensor cores in 3xTF32 (``csrc/tc_product.cuh``).
+  kernel of ``csrc/cheb_bwd.cu``.
+
+Both CUDA kernels run one thread-block cluster per matrix with its working
+planes in the cluster's shared memory and every product on the tensor
+cores in 3xTF32 (``csrc/tc_product.cuh``).
 
 Each has a plain version, the same dataflow in batched torch ops, which a
 CPU tensor runs; a CUDA tensor launches the kernel.  ``ChebFilterFn`` wires
@@ -25,9 +27,10 @@ kernel, and runs the Clenshaw recurrence through ``cheb_filter_matrices``.
 Forward dataflow: A = M / max(||M||_F, 1e-20); b_1 = b_2 = 0; for
 j = degree-1 .. 1, b_0 = herm(c_j I + 2 A b_1 - b_2); out = herm(c_0 I +
 A b_1 - b_2), herm(X) = (X + X^H)/2, every complex product a 3-product
-Karatsuba in IEEE fp32.  The output is in the normalized domain (the caller
-scales by r).  The TPU kernel's one-pass bf16 products become fp32
-products; its per-step re-projection is kept.
+Karatsuba: 3xTF32 on the card (fp32-faithful, ~2^-21 per product), IEEE
+fp32 in the plain version.  The output is in the normalized domain (the
+caller scales by r).  The TPU kernel's one-pass bf16 products become
+fp32-faithful products; its per-step re-projection is kept.
 
 Backward (torch's complex convention: the conjugate of JAX's raw
 cotangent), for the cotangent Y of out: V = herm(Y); cbar_0 = Re tr V;
@@ -50,8 +53,6 @@ import torch
 
 from admmnet_tpu_torch.kernels.polar import LaunchCounter, karatsuba, padded_side
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
-
-SCRATCH_PLANES = 7
 
 launches = LaunchCounter()  # K4: the inference forward
 fwd_launches = LaunchCounter()  # K5: the training forward
@@ -193,12 +194,11 @@ def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries:
     Gi = torch.empty_like(Mi)
     res = tuple(torch.empty_like(Mr) for _ in range(4)) if carries else ()
     ptrs = [x.data_ptr() for x in res] if carries else [None] * 4
-    scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32, device=M.device)
     lib = _build.lib()
     with torch.cuda.device(M.device):
         err = lib.cheb_filter_launch(
             Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
-            *ptrs, scratch.data_ptr(), B, P, m, degree,
+            *ptrs, B, P, m, degree,
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "cheb_filter_launch")
@@ -308,8 +308,8 @@ def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> 
     m <= 128, with coefficients (..., degree) (c_0 pre-halved).
 
     When a gradient is needed this is ``ChebFilterFn`` (K5 + K6 on CUDA,
-    their plain versions on the CPU, fp32 products).  Otherwise a CUDA
-    tensor launches K4 (one thread block per matrix) and a CPU tensor runs
+    their plain versions on the CPU).  Otherwise a CUDA tensor launches K4
+    (one thread-block cluster per matrix) and a CPU tensor runs
     ``cheb_filter_matrices_plain``.  Any other device raises.
     """
     _check(M, coeffs, degree)

@@ -11,159 +11,286 @@
 // Recurrence, per matrix (b_1 = b_2 = 0):
 //   b_0 = herm(c_j I + 2 A b_1 - b_2),  j = degree-1 .. 1;  (b_1, b_2) <- (b_0, b_1)
 //   G   = herm(c_0 I + A b_1 - b_2)
-// herm(X) = (X + X^H) / 2.  Every b_j is a polynomial in A, so A and b_1
-// commute and their product is Hermitian in exact arithmetic: the complex
-// product is common.cuh's Karatsuba product of commuting Hermitians (3 real
-// products), and the re-projection removes only the rounding's
-// non-Hermitian part before the 2 A b_1 doubling compounds it.  Products
-// are IEEE fp32 (SIMT FMA); the TPU kernel's one-pass bf16 products have
-// no counterpart here, nor has its final_hi option.
+// herm(X) = (X + X^H) / 2.  The first step multiplies by b_1 = 0, so the
+// kernel starts from its result, b_1 = c_{degree-1} I, and runs degree - 1
+// products.  Every b_j is a polynomial in A, so the product is Hermitian in
+// exact arithmetic, and the re-projection removes only the rounding's
+// non-Hermitian part before the 2 A b_1 doubling compounds it.  The TPU
+// kernel's one-pass bf16 products have no counterpart here, nor has its
+// final_hi option: every product is fp32-faithful.
 //
-// Bound on this card: arithmetic.  degree x 3 real products of side P per
-// matrix (degree 48, m = 101 logical: 2.97e8 FLOP of useful work, 4.05e8
-// at P = 112) against one read of M and one write of G (163 KB): at the
-// fp32 SIMT peak of 67 TFLOP/s the products take ~90x longer than the
-// bytes at 3.35 TB/s.  The TPU kernel kept A, b_1, b_2 in VMEM; an SM has
-// 227 KB of shared memory, so this design keeps the seven working planes
-// (A, b_1, b_2 as real/imaginary pairs and the Karatsuba temporary) in a
-// per-block global scratch that stays in L2 while the block runs, streams
-// each product's operands through 16-deep shared-memory tiles into 7 x 7
-// per-thread register micro-tiles (common.cuh), and rotates b_1 / b_2 by
-// pointer instead of copying.  One thread block per matrix.
+// Bound on this card: arithmetic.  degree - 1 complex products of side m
+// per matrix, each three real products (Karatsuba): at degree 48 and
+// m = 101, 2.9e8 FLOP of useful work against one read of M and one write
+// of G (163 KB; K5 adds the four carry planes).  In 3xTF32 on the tensor
+// cores (three TF32 products per useful one at 495 TFLOP/s) that is
+// 1.76 us a matrix, against 4.3 us at the fp32 SIMT peak of 67 TFLOP/s.
+//
+// Design (tc_product.cuh, as cheb_bwd.cu): one thread-block cluster of
+// P / 16 CTAs per matrix; CTA q owns rows [16 q, 16 q + 16) of A, b_1 and
+// b_2 as real/imaginary band planes in its shared memory, beside the
+// staging double buffer (75328 B a CTA at P = 112, two CTAs an SM).  A
+// step is one band_product on the tensor cores (3xTF32 mma.sync,
+// Karatsuba): the CTA's band of A against b_1's bands, staged from their
+// owners through distributed shared memory, own band first.  X = c_j I +
+// 2 A b_1 - b_2 is formed in the accumulator layout in the stage's first
+// half; after a cluster barrier each warp copies the one 16 x 16 block of
+// X^T its columns need from the CTA that owns it, as float4 reads, into
+// the stage's second half (scalar remote reads there cost 15% of the
+// kernel), and writes b_0 = herm(X) over b_2, which no other CTA reads;
+// b_1 and b_2 swap by pointer, and a second cluster barrier publishes b_0.
+// ||M||_F is summed over the cluster in rank order, as cheb_bwd.cu sums it,
+// so K6 rebuilds the forward's states from the same A.  Nothing but the
+// inputs and outputs touches device memory.  K4 and K5 are one
+// instantiation: the carry pointers are a run-time choice, so K5's G is
+// K4's bit for bit.
 //
 // Padding: the planes are zero-padded from m to P.  c_j is added on the
 // logical diagonal only (row < m), so every padded row and column stays
 // exactly zero through the whole recurrence (a zero row of A or column of
-// b_1 gives a zero row or column of the product).
+// b_1 gives a zero row or column of the product; a zero splits into zero
+// tf32 halves).
 #include "common.cuh"
+#include "tc_product.cuh"
 
 namespace admmk {
 
-constexpr int CHEB_PLANES = 7;  // Ar, Ai, b1r, b1i, b2r, b2i, T
+namespace cg = cooperative_groups;
+using tcp::BAND;
+using tcp::CAcc;
+using tcp::NPW;
 
 template <int P>
-__global__ void __launch_bounds__(NT) cheb_filter_kernel(const float* __restrict__ Mr_all,
-                                                          const float* __restrict__ Mi_all,
-                                                          const float* __restrict__ coeffs,
-                                                          float* Gr_all, float* Gi_all,
-                                                          float* C1r_all, float* C1i_all,
-                                                          float* C2r_all, float* C2i_all,
-                                                          float* scratch, int m, int degree) {
-  constexpr int MT = P / TS;
-  __shared__ Tiles<P> sm;
-  const size_t off = static_cast<size_t>(blockIdx.x) * P * P;
-  const float* Mr = Mr_all + off;
-  const float* Mi = Mi_all + off;
-  float* Gr = Gr_all + off;
-  float* Gi = Gi_all + off;
-  const float* c = coeffs + static_cast<size_t>(blockIdx.x) * degree;
-  float* base = scratch + static_cast<size_t>(blockIdx.x) * CHEB_PLANES * P * P;
-  float* Ar = base;
-  float* Ai = base + 1 * P * P;
-  float* b1r = base + 2 * P * P;
-  float* b1i = base + 3 * P * P;
-  float* b2r = base + 4 * P * P;
-  float* b2i = base + 5 * P * P;
-  float* T = base + 6 * P * P;
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
+constexpr int fwd_smem_floats() {
+  // 6 band planes (Ar, Ai, b1r, b1i, b2r, b2i), the staging double buffer
+  // (between products: X and herm's transposed blocks), the block
+  // reduction's partials and one cluster-visible slot
+  return 6 * tcp::Layout<P>::PLANE + 4 * tcp::Layout<P>::SLICE + 16;
+}
 
-  // A = M / max(||M||_F, 1e-20); b_1 = b_2 = 0
-  float s = 0.f;
-  for (int e = threadIdx.x; e < P * P; e += NT) s += Mr[e] * Mr[e] + Mi[e] * Mi[e];
-  const float rinv = 1.f / fmaxf(sqrtf(block_sum<P>(sm, s)), 1e-20f);
-  for (int e = threadIdx.x; e < P * P; e += NT) {
-    Ar[e] = Mr[e] * rinv;
-    Ai[e] = Mi[e] * rinv;
-    b1r[e] = 0.f;
-    b1i[e] = 0.f;
-    b2r[e] = 0.f;
-    b2i[e] = 0.f;
+// Row stride of a warp's transposed 16 x 16 block in herm (scalar stores;
+// 2-way bank conflicts on the transposed reads)
+constexpr int WS = 17;
+
+// Two CTAs an SM (75328 B of shared memory a CTA at P = 112, 85568 B at
+// P = 128; a third at P = 112 would cap the registers at 80 and spill).
+template <int P>
+__global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
+    const float* __restrict__ Mr_all, const float* __restrict__ Mi_all,
+    const float* __restrict__ coeffs, float* Gr_all, float* Gi_all, float* C1r_all,
+    float* C1i_all, float* C2r_all, float* C2i_all, int m, int degree) {
+  using L = tcp::Layout<P>;
+  constexpr int SA = L::SA, SB = L::SB;
+  static_assert(L::NC * 2 * BAND * WS <= 2 * L::SLICE, "herm's blocks exceed the stage");
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mat = blockIdx.x / L::NC;
+  const int row0 = rank * BAND;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+
+  float* Ar = smem;
+  float* Ai = Ar + L::PLANE;
+  float* b1r = Ai + L::PLANE;
+  float* b1i = b1r + L::PLANE;
+  float* b2r = b1i + L::PLANE;
+  float* b2i = b2r + L::PLANE;
+  float* stage = b2i + L::PLANE;
+  // between a product and the next: X's band, read across the cluster by
+  // herm, in the stage's first half, row stride SB; this warp's transposed
+  // block in its second half
+  float* Xr = stage;
+  float* Xi = stage + L::SLICE;
+  float* w = stage + 2 * L::SLICE + warp * 2 * BAND * WS;
+  float* red = stage + 4 * L::SLICE;  // one partial per warp
+  float* slot = red + 8;              // ||M||_F^2 partial
+
+  const size_t base = static_cast<size_t>(mat) * P * P;
+  const float* c = coeffs + static_cast<size_t>(mat) * degree;
+
+  // element e of this thread's n-tile j: band row, column
+  auto row_of = [&](int e) { return g + 8 * (e >> 1); };
+  auto col_of = [&](int j, int e) { return warp * 16 + 8 * j + 2 * q4 + (e & 1); };
+
+  // ||M||_F over the cluster, summed in rank order (the same in every CTA)
+  float ss = 0.f;
+  for (int e = tid; e < BAND * P; e += L::NT) {
+    const float a = Mr_all[base + row0 * P + e], b = Mi_all[base + row0 * P + e];
+    ss += a * a + b * b;
   }
+  ss = warp_sum(ss);
+  if (lane == 0) red[warp] = ss;
   __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < L::NC; ++w) s += red[w];
+    slot[0] = s;
+  }
+  cluster.sync();
+  float tot = 0.f;
+  for (int q = 0; q < L::NC; ++q) tot += *cluster.map_shared_rank(slot, q);
+  const float rinv = 1.f / fmaxf(sqrtf(tot), 1e-20f);
 
-  float cr[MT][MT], ci[MT][MT];
-  for (int j = degree - 1; j >= 1; --j) {
-    const float cj = c[j];
-    karatsuba<P, false>(sm, Ar, Ai, b1r, b1i, T, cr, ci);  // A b_1
-    // b_0 = c_j I + 2 A b_1 - b_2; each thread reads only the b_2 entries
-    // it then overwrites, so b_2 can serve as hermitian_part's exchange plane
+  // this CTA's bands of A, b_1 = herm(c_{degree-1} I) = c_{degree-1} I (the
+  // first step's result) and b_2 = 0; degree 1 has no step: b_1 = 0
+  const float top = degree >= 2 ? c[degree - 1] : 0.f;
+  for (int e = tid; e < BAND * P; e += L::NT) {
+    const int r = e / P, cc = e % P, gr = row0 + r;
+    const size_t ge = base + static_cast<size_t>(gr) * P + cc;
+    const int li = r * SA + cc;
+    Ar[li] = Mr_all[ge] * rinv;
+    Ai[li] = Mi_all[ge] * rinv;
+    b1r[li] = (gr == cc && cc < m) ? top : 0.f;
+    b1i[li] = 0.f;
+    b2r[li] = 0.f;
+    b2i[li] = 0.f;
+  }
+  cluster.sync();
+
+  // X = cj I + alpha A b_1 - b_2 into the stage's first half; returns once
+  // X is visible to the cluster
+  auto form_x = [&](float cj, float alpha) {
+    CAcc acc[1][NPW];
+    const float* const lr[1] = {Ar};
+    const float* const li[1] = {Ai};
+    tcp::band_product<P, 1>(cluster, b1r, b1i, lr, li, stage, m, acc);
+    __syncthreads();  // every warp is done with the stage
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int r = ty + TS * i, cc = tx + TS * jj;
-        const int idx = r * P + cc;
-        const float d = (r == cc && r < m) ? cj : 0.f;
-        cr[i][jj] = (d + 2.f * cr[i][jj]) - b2r[idx];
-        ci[i][jj] = 2.f * ci[i][jj] - b2i[idx];
+      for (int e = 0; e < 4; ++e) {
+        const int r = row_of(e), cc = col_of(jj, e), idx = r * SA + cc;
+        const float d = (row0 + r == cc && cc < m) ? cj : 0.f;
+        Xr[r * SB + cc] = (d + alpha * tcp::acc_re(acc[0][jj], e)) - b2r[idx];
+        Xi[r * SB + cc] = alpha * tcp::acc_im(acc[0][jj], e) - b2i[idx];
       }
-    hermitian_part<P>(b2r, b2i, cr, ci);
+    cluster.sync();
+  };
+  // herm(X) at this thread's entries (row0 + r, cc) into (hr, hi): X^T's
+  // entry lies in the band of row cc, at column row0 + r.  Warp w's columns
+  // are rows [16 w, 16 w + 16), so the warp copies that one 16 x 16 block
+  // from CTA w (float4 reads over distributed shared memory) into its block
+  // w and reads it transposed.
+  auto herm = [&](float (&hr)[NPW][4], float (&hi)[NPW][4]) {
+    const float* xr = cluster.map_shared_rank(Xr, warp);
+    const float* xi = cluster.map_shared_rank(Xi, warp);
+    float4 blk[4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int k = 0; k < 4; ++k) {
+      const int e = lane + 32 * k, row = (e >> 2) & 15, c4 = e & 3;
+      blk[k] = *reinterpret_cast<const float4*>((e >= 64 ? xi : xr) + row * SB + row0 + 4 * c4);
+    }
 #pragma unroll
-      for (int jj = 0; jj < MT; ++jj) {
-        const int idx = (ty + TS * i) * P + tx + TS * jj;
-        b2r[idx] = cr[i][jj];
-        b2i[idx] = ci[i][jj];
+    for (int k = 0; k < 4; ++k) {
+      const int e = lane + 32 * k, row = (e >> 2) & 15, c4 = e & 3;
+      float* t = w + (e >= 64 ? BAND * WS : 0) + row * WS + 4 * c4;
+      t[0] = blk[k].x;
+      t[1] = blk[k].y;
+      t[2] = blk[k].z;
+      t[3] = blk[k].w;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row_of(e), cc = col_of(jj, e), t = (cc - 16 * warp) * WS + r;
+        hr[jj][e] = 0.5f * (Xr[r * SB + cc] + w[t]);
+        hi[jj][e] = 0.5f * (Xi[r * SB + cc] - w[BAND * WS + t]);
       }
-    __syncthreads();
-    // (b_1, b_2) <- (b_0, b_1): b_0 now sits in the old b_2 planes
+  };
+
+  for (int j = degree - 2; j >= 1; --j) {
+    form_x(c[j], 2.f);
+    // b_0 = herm(X) over b_2, which no other CTA reads; then
+    // (b_1, b_2) <- (b_0, b_1)
+    float hr[NPW][4], hi[NPW][4];
+    herm(hr, hi);
+#pragma unroll
+    for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = row_of(e) * SA + col_of(jj, e);
+        b2r[idx] = hr[jj][e];
+        b2i[idx] = hi[jj][e];
+      }
     float* t = b1r;
     b1r = b2r;
     b2r = t;
     t = b1i;
     b1i = b2i;
     b2i = t;
+    cluster.sync();  // b_0 is visible; every read of X is done
   }
 
   // G = herm(c_0 I + A b_1 - b_2)
-  karatsuba<P, false>(sm, Ar, Ai, b1r, b1i, T, cr, ci);
-  const float c0 = c[0];
+  form_x(c[0], 1.f);
+  {
+    float hr[NPW][4], hi[NPW][4];
+    herm(hr, hi);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
-    for (int jj = 0; jj < MT; ++jj) {
-      const int r = ty + TS * i, cc = tx + TS * jj;
-      const int idx = r * P + cc;
-      const float d = (r == cc && r < m) ? c0 : 0.f;
-      cr[i][jj] = (d + cr[i][jj]) - b2r[idx];
-      ci[i][jj] = ci[i][jj] - b2i[idx];
-    }
-  hermitian_part<P>(Gr, Gi, cr, ci);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int jj = 0; jj < MT; ++jj) {
-      const int idx = (ty + TS * i) * P + tx + TS * jj;
-      Gr[idx] = cr[i][jj];
-      Gi[idx] = ci[i][jj];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const size_t ge = base + static_cast<size_t>(row0 + row_of(e)) * P + col_of(jj, e);
+        Gr_all[ge] = hr[jj][e];
+        Gi_all[ge] = hi[jj][e];
+      }
+  }
   // training forward (K5): the final carries (b_1, b_2), the only residuals
-  // the reversible backward (cheb_bwd.cu) needs.  The last loop step ended
-  // with a barrier and nothing since wrote b_1 or b_2.
+  // the reversible backward (cheb_bwd.cu) needs
   if (C1r_all != nullptr) {
-    for (int e = threadIdx.x; e < P * P; e += NT) {
-      C1r_all[off + e] = b1r[e];
-      C1i_all[off + e] = b1i[e];
-      C2r_all[off + e] = b2r[e];
-      C2i_all[off + e] = b2i[e];
+    for (int e = tid; e < BAND * P; e += L::NT) {
+      const int r = e / P, cc = e % P, li = r * SA + cc;
+      const size_t ge = base + static_cast<size_t>(row0 + r) * P + cc;
+      C1r_all[ge] = b1r[li];
+      C1i_all[ge] = b1i[li];
+      C2r_all[ge] = b2r[li];
+      C2i_all[ge] = b2i[li];
     }
   }
+  cluster.sync();  // no CTA leaves while another still reads its X
+}
+
+template <int P>
+int launch_cheb_filter(const float* Mr, const float* Mi, const float* coeffs, float* Gr,
+                       float* Gi, float* b1r, float* b1i, float* b2r, float* b2i, int B, int m,
+                       int degree, cudaStream_t st) {
+  using L = tcp::Layout<P>;
+  const int bytes = fwd_smem_floats<P>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(cheb_filter_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * L::NC);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cheb_filter_kernel<P>, Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r,
+                           b2i, m, degree);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace admmk
 
 // C entry point.  Mr, Mi: (B, P, P) float planes, zero-padded past the
 // logical side m; coeffs: (B, degree) floats on the device; Gr, Gi: (B, P, P),
-// written; scratch: B * 7 * P * P floats.  b1r, b1i, b2r, b2i: all null (the
-// inference forward) or all (B, P, P) planes that receive the final Clenshaw
-// carries (the training forward); the output G is the same either way, bit
-// for bit, since both run the same instantiation.  Returns the launch's
-// cudaError_t.
+// written.  b1r, b1i, b2r, b2i: all null (the inference forward) or all
+// (B, P, P) planes that receive the final Clenshaw carries (the training
+// forward); the output G is the same either way, bit for bit, since both
+// run the same instantiation.  Returns the launch's cudaError_t.
 extern "C" int cheb_filter_launch(const float* Mr, const float* Mi, const float* coeffs,
                                   float* Gr, float* Gi, float* b1r, float* b1i, float* b2r,
-                                  float* b2i, float* scratch, int B, int P, int m, int degree,
-                                  void* stream) {
+                                  float* b2i, int B, int P, int m, int degree, void* stream) {
   using namespace admmk;
   if (B <= 0 || degree < 1 || m < 1 || m > P) return static_cast<int>(cudaErrorInvalidValue);
   const bool carries = b1r != nullptr;
@@ -171,12 +298,10 @@ extern "C" int cheb_filter_launch(const float* Mr, const float* Mi, const float*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 112)
-    cheb_filter_kernel<112><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i,
-                                              scratch, m, degree);
-  else if (P == 128)
-    cheb_filter_kernel<128><<<B, NT, 0, st>>>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i,
-                                              scratch, m, degree);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_cheb_filter<112>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i, B, m, degree,
+                                   st);
+  if (P == 128)
+    return launch_cheb_filter<128>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i, B, m, degree,
+                                   st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,8 +12,9 @@ and holding each kernel against its plain PyTorch version:
   (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
   random-SNR scenes, held against the JAX package's golden output;
 - training (phases 14-17): the Clenshaw training forward K5 and reversible
-  backward K6 (tensor-core products; phase 2 counts the HMMA instructions
-  of K6 and of every K2/K3 instantiation) against their plain versions, three recipe steps of net-3
+  backward K6 (tensor-core products, as K4's and K2/K3's; phase 2 counts
+  the HMMA instructions of every instantiation) against their plain
+  versions, three recipe steps of net-3
   against the JAX package's golden steps, then ``generate_dataset`` and
   ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
   on the card through the native minibatch loader, scored against the
@@ -34,8 +35,10 @@ to; any failure raises (non-zero exit) before the last line.  The last line is t
 the line before it the card's name and power limit, and the one before
 that a JSON summary of the kernels.  Run from the
 repository root with ``python3 chip_smoke.py``; it needs one CUDA device
-and exits non-zero without one.  ``python3 chip_smoke.py --time-k6`` runs
-only phase 17's timing of K6, to pair two trees (``time_k6``);
+and exits non-zero without one.  ``python3 chip_smoke.py --time-cheb``
+runs only phases 12 and 17's timing of K4 and K5 (``time_cheb``) and
+``--time-k6`` only phase 17's timing of K6 (``time_k6``), to pair two
+trees;
 ``python3 chip_smoke.py --profile-k2`` only phase 25, the subtraction
 profile of K2 by its ``ablate`` variants (``k2_profile``).
 """
@@ -78,7 +81,7 @@ CHEB_DEGREE = 48
 B_K56 = 64  # matrices, K5/K6 vs their plain versions
 B_K6_128 = 16  # matrices of side 120, K6 at P = 128 vs its plain version
 B_TIME_TRAIN = (256, 2048)  # K5/K6 timing batches; 256 is the training batch
-K6_REPS = 10  # timed K6 calls per batch
+CHEB_REPS = 10  # timed calls per batch of K4, K5 and K6 (the median is reported)
 GOLDEN_BATCH, GOLDEN_STEPS, GOLDEN_STEPS_PER_EPOCH = 64, 3, 27
 TRAIN_ARGS = ("--num-layers", "3", "--g-mode", "chebyshev", "--cheb-impl", "pallas",
               "--head", "spectrum", "--assignment", "perm", "--spectral-weight", "0.5",
@@ -110,6 +113,9 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
+# K4/K5's body (csrc/cheb_filter.cu), named in the kernels summary
+CHEB_FWD_BODY = ("one thread-block cluster of P / 16 CTAs per matrix, bands in shared "
+                 "memory, 3xTF32 mma.sync products (tc_product.cuh)")
 
 # Tolerances, with their reasons:
 # - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py).
@@ -259,9 +265,10 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
 
 
 def cheb_flops(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
-    """Useful fp32 operations of K4: degree Karatsuba products (3 real m^3
-    products of 2 m^3 operations each) per matrix."""
-    return B * degree * 3 * 2.0 * m**3
+    """Useful fp32 operations of K4: degree - 1 Karatsuba products (3 real
+    m^3 products of 2 m^3 operations each) per matrix; the recurrence's
+    first product is with b_1 = 0."""
+    return B * (degree - 1) * 3 * 2.0 * m**3
 
 
 def cheb_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
@@ -296,6 +303,37 @@ def cheb_inputs(rng, B: int, dev, m: int = 101, degree: int = CHEB_DEGREE):
     return M, c, Y
 
 
+def k4_inputs(B: int, dev):
+    """Phase 12's K4 timing inputs at batch B (seed 3): random Hermitian
+    matrices and coefficients."""
+    rng = np.random.default_rng(3)
+    M = random_hermitian(rng, B, 101, dev)
+    c = torch.from_numpy((rng.normal(size=(B, CHEB_DEGREE)) * 0.3).astype(np.float32)).to(dev)
+    return M, c
+
+
+def cheb_bounds(B: int, carries: bool):
+    """(3xTF32 bound ms, what bounds it, fp32 SIMT bound ms) of K4, or of
+    K5 (which also writes the four carry planes) at batch B."""
+    nbytes = cheb_bytes(B) + (B * 4 * 101 * 101 * 4 if carries else 0)
+    b, by = tf32x3_bound(cheb_flops(B), nbytes)
+    return b, by, bound(cheb_flops(B), nbytes)[0]
+
+
+def fp64_distances(kc, M, c, carries):
+    """Max per-matrix relative distance of K5's carries (padded planes) and
+    of the fp32 plain version's from the fp64 plain evaluation, the last
+    (zero) matrix left out: how far from fp32-faithful the 3xTF32 products
+    leave the recurrence, beside fp32's own distance."""
+    m = M.shape[-1]
+    _, p32 = kc.cheb_filter_matrices_plain_with_residuals(M, c, CHEB_DEGREE)
+    _, p64 = kc.cheb_filter_matrices_plain_with_residuals(M.to(torch.complex128), c.double(),
+                                                          CHEB_DEGREE)
+    dk = max(float(rel_err(k[:-1, :m, :m].double(), q[:-1]).max()) for k, q in zip(carries, p64))
+    dp = max(float(rel_err(p[:-1].double(), q[:-1]).max()) for p, q in zip(p32, p64))
+    return dk, dp
+
+
 def k6_inputs(kc, B: int, dev):
     """Phase 17's K6 timing inputs at batch B (seed 5): M, c, Y and K5's
     carries."""
@@ -303,9 +341,22 @@ def k6_inputs(kc, B: int, dev):
     return M, c, Y, kc.cheb_fwd_planes(M, c, CHEB_DEGREE)[2]
 
 
+def k4_call_ms(M, c) -> list:
+    """ms of each of CHEB_REPS back-to-back K4 calls through the GLayer's
+    entry point (call_ms)."""
+    from admmnet_tpu_torch.kernels.cheb_filter import cheb_filter_matrices
+
+    return call_ms(lambda: cheb_filter_matrices(M, c, CHEB_DEGREE), CHEB_REPS)
+
+
+def k5_call_ms(kc, M, c) -> list:
+    """ms of each of CHEB_REPS back-to-back K5 calls (call_ms)."""
+    return call_ms(lambda: kc.cheb_fwd_planes(M, c, CHEB_DEGREE), CHEB_REPS)
+
+
 def k6_call_ms(kc, M, c, Y, carries) -> list:
-    """ms of each of K6_REPS back-to-back K6 calls (call_ms)."""
-    return call_ms(lambda: kc.cheb_bwd(M, c, carries, Y, CHEB_DEGREE), K6_REPS)
+    """ms of each of CHEB_REPS back-to-back K6 calls (call_ms)."""
+    return call_ms(lambda: kc.cheb_bwd(M, c, carries, Y, CHEB_DEGREE), CHEB_REPS)
 
 
 def anchor_like_batch(B: int, Nb: int, Nd: int, seed: int):
@@ -450,6 +501,13 @@ def solve_flops(n_inst_iters: int, nsteps: int, n: int = 100) -> float:
     return n_inst_iters * (9 * nsteps + 3) * 2.0 * (n + 1) ** 3
 
 
+def cheb_fwd_smem_bytes(P: int) -> int:
+    """cheb_filter.cu's dynamic shared memory a CTA: 6 band planes of
+    16 (P + 4) floats, the staging double buffer of 4 x 16 (P + 8) and 16
+    floats of partials and slot."""
+    return 4 * (6 * 16 * (P + 4) + 4 * 16 * (P + 8) + 16)
+
+
 def tc_solve_smem_bytes(P: int) -> int:
     """fused_solve_tc.cuh's dynamic shared memory a CTA: 8 band planes of
     16 (P + 4) floats, the staging double buffer of 4 x 16 (P + 8), 10 rows
@@ -564,7 +622,8 @@ class Smoke:
         secs = time.time() - t0
         log(f"[2 build] K1 polar.cu + K2/K3 fused_admm_fast.cu (P = 128: fused_admm_fast_p128.cu;"
             f" ablate: fused_admm_fast_ablate{{,_p128}}.cu; body fused_solve_tc.cuh)"
-            f" + K7 fused_admm.cu + K4/K5 cheb_filter.cu + K6 cheb_bwd.cu, one nvcc each in "
+            f" + K7 fused_admm.cu + K4/K5 cheb_filter.cu + K6 cheb_bwd.cu (products"
+            f" tc_product.cuh), one nvcc each in "
             f"parallel: {secs:.1f} s (nvcc "
             f"{_build.build_seconds}) -> "
             f"{_build.library_path().name}")
@@ -580,11 +639,12 @@ class Smoke:
                     log(f"[2 build]   {name} {entry}: ptxas {ln.strip()}")
         for P in (112, 128):
             log(f"[2 build] K2/K3 dynamic shared memory a CTA at P = {P}: "
-                f"{tc_solve_smem_bytes(P)} B (fused_solve_tc.cuh's count)")
+                f"{tc_solve_smem_bytes(P)} B (fused_solve_tc.cuh's count); K4/K5 "
+                f"{cheb_fwd_smem_bytes(P)} B (cheb_filter.cu's count)")
 
     def tc_sass(self):
-        """K6's and every K2/K3 instantiation's products reach the tensor
-        cores: HMMA instructions in their SASS."""
+        """The products of K4/K5, K6 and every K2/K3 instantiation reach the
+        tensor cores: HMMA instructions in their SASS."""
         import re
         import shutil
 
@@ -596,16 +656,22 @@ class Smoke:
         found = {}
         for block in re.split(r"\n\s*Function : ", sass)[1:]:
             name = block.split("\n", 1)[0].strip()
-            if "cheb_bwd_kernel" in name or "fused_tc_kernel" in name:
+            if any(k in name for k in ("cheb_filter_kernel", "cheb_bwd_kernel", "fused_tc_kernel")):
                 found[name] = (block.count("HMMA"), block.count("LDL"), block.count("STL"))
+        keys = {"cheb_filter_kernel": "K4/K5", "cheb_bwd_kernel": "K6", "fused_tc_kernel": "K2/K3"}
+
+        def key(name):
+            return next(v for k, v in keys.items() if k in name)
+
         for name, (hmma, ldl, stl) in sorted(found.items()):
-            key = "K6" if "cheb_bwd_kernel" in name else "K2/K3"
-            log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
+            log(f"[2 {key(name)} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
                 f"(local memory)")
-        k6 = [h for name, (h, _, _) in found.items() if "cheb_bwd_kernel" in name]
-        k23 = [h for name, (h, _, _) in found.items() if "fused_tc_kernel" in name]
-        # K2/K3: 5 instantiations and 7 ablate variants at each of P = 112, 128
-        check(len(k6) == 2 and len(k23) == 24 and min(k6 + k23) > 0,
+        hmma = {v: [h for name, (h, _, _) in found.items() if key(name) == v]
+                for v in keys.values()}
+        # K4/K5 and K6 at P = 112, 128; K2/K3: 5 instantiations and 7 ablate
+        # variants at each of P = 112, 128
+        check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3")] == [2, 2, 24]
+              and min(sum(hmma.values(), [])) > 0,
               "a tensor-core kernel's SASS has no HMMA instruction")
 
     # 3 -------------------------------------------------------------------
@@ -990,26 +1056,23 @@ class Smoke:
 
     # 12 ------------------------------------------------------------------
     def learned_timings(self):
-        from admmnet_tpu_torch.kernels.cheb_filter import (
-            cheb_filter_matrices,
-            cheb_filter_matrices_plain,
-        )
+        from admmnet_tpu_torch.kernels.cheb_filter import cheb_filter_matrices_plain
 
         tag = f"[{self.card}]"
-        rng = np.random.default_rng(3)
         for B in B_TIME_NET:
-            M = random_hermitian(rng, B, 101, self.dev)
-            c = torch.from_numpy(
-                (rng.normal(size=(B, CHEB_DEGREE)) * 0.3).astype(np.float32)).to(self.dev)
-            k4 = cuda_ms(lambda: cheb_filter_matrices(M, c, CHEB_DEGREE), reps=3)
+            M, c = k4_inputs(B, self.dev)
+            calls = k4_call_ms(M, c)
+            k4 = float(np.median(calls))
             k4p = cuda_ms(lambda: cheb_filter_matrices_plain(M, c, CHEB_DEGREE), reps=3)
-            k4_bound, k4_by = bound(cheb_flops(B), cheb_bytes(B))
+            k4_bound, k4_by, k4_fp32 = cheb_bounds(B, carries=False)
             log(f"[12 time K4] one GLayer call, B={B} m=101 degree {CHEB_DEGREE}: kernel "
-                f"{k4:.2f} ms ({cheb_flops(B) / k4 / 1e9:.2f} TFLOP/s useful), plain "
-                f"{k4p:.2f} ms; bound {k4_bound:.2f} ms ({k4_by}) {tag}")
+                f"{k4:.2f} ms, the median of {CHEB_REPS} calls {min(calls):.2f}-{max(calls):.2f} "
+                f"({cheb_flops(B) / k4 / 1e9:.2f} TFLOP/s useful), plain {k4p:.2f} ms; 3xTF32 "
+                f"tensor-core bound {k4_bound:.2f} ms ({k4_by}; {k4_bound / k4:.1%} of it), fp32 "
+                f"SIMT bound {k4_fp32:.2f} ms ({k4_fp32 / k4:.1%} of it) {tag}")
             del M, c
         self.kernels["K4"].update(ms=k4, plain_ms=k4p, bound_ms=k4_bound, bound_by=k4_by,
-                                  library_ms=None)
+                                  library_ms=None, body=CHEB_FWD_BODY, fp32_bound_ms=k4_fp32)
 
         B = B_TIME_NET[-1]
         reps = -(-B // len(self.raw["y"]))
@@ -1063,6 +1126,15 @@ class Smoke:
             f"{K5_PLAIN_TOL:g}); carry padding exactly 0: {pad_ok}")
         check(bitwise, "K5's output differs from K4's")
         check(e5 < K5_PLAIN_TOL and pad_ok, "K5's carries disagree with the plain version")
+        # small matrices with a dominant eigenvalue make the carries
+        # ill-conditioned (tests/test_torch_cuda.py::test_cheb_fwd_kernel_edges)
+        M16, c16, _ = cheb_inputs(np.random.default_rng(7), 8, self.dev, m=16)
+        d101 = fp64_distances(kc, M, c, carries)
+        d16 = fp64_distances(kc, M16, c16, kc.cheb_fwd_planes(M16, c16, D)[2])
+        log(f"[14 K5 vs fp64] carries' max per-matrix distance from the fp64 evaluation, "
+            f"kernel / fp32 plain version: m={m} {d101[0]:.3e} / {d101[1]:.3e} "
+            f"({d101[0] / d101[1]:.2f}x); m=16 (B=8, half with a dominant eigenvalue) "
+            f"{d16[0]:.3e} / {d16[1]:.3e} ({d16[0] / d16[1]:.2f}x)")
 
         # K6 at the GLayer's side (P = 112: clusters of 7 CTAs, two an SM) and
         # at a lifted side of 120 (P = 128: clusters of 8 CTAs, one an SM)
@@ -1247,28 +1319,32 @@ class Smoke:
         for B in B_TIME_TRAIN:
             M, c, Y, carries = k6_inputs(kc, B, self.dev)
             cropped = [x[:, :101, :101].contiguous() for x in carries]
-            k5 = cuda_ms(lambda: kc.cheb_fwd_planes(M, c, D), reps=3)
+            calls5 = k5_call_ms(kc, M, c)
+            k5 = float(np.median(calls5))
             k5p = cuda_ms(lambda: kc.cheb_filter_matrices_plain_with_residuals(M, c, D), reps=3)
             calls = k6_call_ms(kc, M, c, Y, carries)
             k6 = float(np.median(calls))
             k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D), reps=3)
-            b5, by5 = bound(cheb_flops(B), cheb_bytes(B) + B * 4 * 101 * 101 * 4)
+            b5, by5, b5s = cheb_bounds(B, carries=True)
             # K6's products run on the tensor cores in 3xTF32: three TF32
             # products per useful one; the fp32 SIMT bound is kept beside it
             b6, by6 = bound(0.0, cheb_bwd_bytes(B))
             b6 = max(b6, 3 * cheb_bwd_flops(B) / PEAK_TF32 * 1e3)
             by6 = "operations" if b6 > cheb_bwd_bytes(B) / PEAK_BYTES * 1e3 else "bytes"
             b6s, _ = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
-            log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.2f} ms, plain {k5p:.2f} ms; "
-                f"bound {b5:.2f} ms ({by5}) {tag}")
-            log(f"[17 time K6] B={B}: kernel {k6:.3f} ms, the median of {K6_REPS} calls "
+            log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.3f} ms, the median of "
+                f"{CHEB_REPS} calls {min(calls5):.3f}-{max(calls5):.3f}, plain {k5p:.2f} ms; "
+                f"3xTF32 tensor-core bound {b5:.3f} ms ({by5}; {b5 / k5:.1%} of it), fp32 SIMT "
+                f"bound {b5s:.2f} ms ({b5s / k5:.1%} of it) {tag}")
+            log(f"[17 time K6] B={B}: kernel {k6:.3f} ms, the median of {CHEB_REPS} calls "
                 f"{min(calls):.3f}-{max(calls):.3f} ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
                 f"TFLOP/s useful), plain {k6p:.2f} ms; 3xTF32 tensor-core bound {b6:.3f} ms "
                 f"({by6}; {b6 / k6:.1%} of it), fp32 SIMT bound {b6s:.2f} ms ({b6s / k6:.1%} "
                 f"of it) {tag}")
             if B == 256:
                 self.kernels["K5"].update(ms=k5, plain_ms=k5p, bound_ms=b5, bound_by=by5,
-                                          library_ms=None)
+                                          library_ms=None, body=CHEB_FWD_BODY,
+                                          fp32_bound_ms=b5s)
                 self.kernels["K6"].update(ms=k6, plain_ms=k6p, bound_ms=b6, bound_by=by6,
                                           library_ms=None)
             del M, c, Y, carries, cropped
@@ -1649,6 +1725,30 @@ def main() -> int:
     return 0
 
 
+def time_cheb() -> int:
+    """``--time-cheb``: phases 12 and 17's timing of K4 (B = 2048, 8192) and
+    K5 (B = 256, 2048) alone, the median of CHEB_REPS calls each, to compare
+    two trees on one card as ``--time-k6`` does."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: K4's and K5's timing needs one GPU")
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    tag = f"[{card()}]"
+
+    def report(name, B, calls):
+        log(f"[time {name}] {ROOT} B={B}: median {np.median(calls):.3f} ms, mean "
+            f"{np.mean(calls):.3f} ms; calls {' '.join(f'{t:.3f}' for t in calls)} {tag}")
+
+    for B in B_TIME_NET:
+        report("K4", B, k4_call_ms(*k4_inputs(B, dev)))
+    for B in B_TIME_TRAIN:
+        report("K5", B, k5_call_ms(kc, *k6_inputs(kc, B, dev)[:2]))
+    return 0
+
+
 def time_k6() -> int:
     """``--time-k6``: phase 17's timing of K6 alone, to compare two trees on
     one card.  Copy this file into the root of the other tree (for example
@@ -1690,9 +1790,13 @@ def profile_k2() -> int:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--time-cheb", action="store_true",
+                      help="time K4 and K5 alone as phases 12 and 17 do (see time_cheb) and run "
+                           "nothing else")
     mode.add_argument("--time-k6", action="store_true",
                       help="time K6 alone as phase 17 does (see time_k6) and run nothing else")
     mode.add_argument("--profile-k2", action="store_true",
                       help="run K2's subtraction profile alone (phase 25, see k2_profile)")
     args = ap.parse_args()
-    sys.exit(time_k6() if args.time_k6 else profile_k2() if args.profile_k2 else main())
+    sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
+             else profile_k2() if args.profile_k2 else main())

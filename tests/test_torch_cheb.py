@@ -68,6 +68,32 @@ def test_plain_clenshaw_matches_pallas_kernel():
     assert _rel(out.numpy(), ref) < TOL
 
 
+@pytest.mark.parametrize("m, degree", [(20, 1), (20, 2), (120, 16)])
+def test_plain_forward_edges_match_pallas_kernel(m, degree):
+    """The plain forward and its carries at the recurrence's bounds (degree
+    1: no step; 2: the first step only) and at a side the card runs on its
+    P = 128 instantiation (m = 120), vs ``cheb_filter_matrices`` and
+    ``_cheb_fwd_with_residuals`` in interpret mode (cropped to m: the TPU
+    kernel adds c_j on the padded diagonal too).  A carry that is zero in
+    JAX's (degree 1's, degree 2's b_2) must be exactly zero."""
+    from admmnet_tpu.kernels.cheb_filter import _cheb_fwd_with_residuals
+
+    M = _hermitian(2, m, 20 + degree)
+    c = (np.random.default_rng(21 + degree).normal(size=(2, degree)) * 0.3).astype(np.float32)
+    ref = cheb_filter_matrices(jnp.asarray(M), jnp.asarray(c), degree, kblk=2, interpret=True)
+    _, res_j = _cheb_fwd_with_residuals(jnp.asarray(M), jnp.asarray(c), degree, kblk=2,
+                                        interpret=True)
+    out, res_t = kc.cheb_filter_matrices_plain_with_residuals(
+        torch.from_numpy(M), torch.from_numpy(c), degree)
+    assert _rel(out.numpy(), ref) < TOL
+    for rj, rt in zip(res_j, res_t):
+        rj = np.asarray(rj)[:, :m, :m]
+        if not np.any(rj):
+            assert not torch.any(rt)
+        else:
+            assert _rel(rt.numpy(), rj) < TOL
+
+
 def test_kernel_route_matches_pallas_route():
     M = _hermitian(3, 20, 4)
     fj, ft = _filters(0.1)

@@ -14,9 +14,12 @@ a bisection decision of the H-projection), below 1e-2 for the bf16
 iterate storage (where it can flip a bf16 rounding, 2^-8 relative), whose
 median matrix must agree to 1e-5 and stand more than 1e-3 from the fp32
 store (one flip is ~3e-3, fp32 noise ~1e-7), below 5e-5 for the 48
-dependent steps of a Clenshaw evaluation (measured 5.7e-7 on random
-matrices on an H100), and below 1e-3 for the reversible backward, which
-rebuilds the forward's states from its last two.
+dependent steps of a Clenshaw evaluation at the GLayer's side (measured
+5.7e-7 on random matrices on an H100; at the edge sides, where small
+spiked matrices amplify any rounding, within 8x the fp32 plain version's
+distance from fp64), and below 1e-3
+for the reversible backward, which rebuilds the forward's states from its
+last two.
 """
 
 import numpy as np
@@ -229,6 +232,57 @@ def test_cheb_fwd_kernel_is_k4_with_carries(cuda):
     for k, p in zip(carries, plain):
         assert bool(torch.all(k[:, 101:, :] == 0)) and bool(torch.all(k[:, :, 101:] == 0))
         assert _rel(k[:, :101, :101], p) < 5e-5
+
+
+def _fp32_faithful(k, p32, p64):
+    """Matrices whose fp32 plain version is exactly zero (degree 1's carries,
+    degree 2's b_2) must be exactly zero; the rest no further from the fp64
+    evaluation than 8x the fp32 plain version is (3xTF32 rounds a product at
+    ~2^-21, IEEE fp32 at 2^-24), plus 1e-6."""
+    zero = torch.linalg.norm(p32.reshape(p32.shape[0], -1), dim=-1) == 0
+    assert torch.equal(k[zero], p32[zero])
+    if bool((~zero).any()):
+        k, p32, p64 = k[~zero].to(p64.dtype), p32[~zero].to(p64.dtype), p64[~zero]
+        assert _rel(k, p64) <= 8 * _rel(p32, p64) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [10, 16, 101, 111, 120, 126])
+@pytest.mark.parametrize("degree", [1, 2, 3, 48])
+def test_cheb_fwd_kernel_edges(cuda, degree, m):
+    """K4 and K5 at the loop's bounds (degree 1: no step, the product with
+    b_1 = 0 only; 2: no step after the first; 3: one), at sides that leave
+    whole bands of the cluster as padding (m = 10, 16), at the GLayer's
+    (m = 101) and the last of P = 112 (m = 111), and at lifted sides of the
+    P = 128 instantiation (m = 120, 126: clusters of 8 CTAs), with a zero
+    matrix: G and the carries of the zero matrix exactly the plain
+    version's, every padded row and column exactly 0, K5's G bitwise K4's,
+    and the rest fp32-faithful against the fp64 evaluation (_fp32_faithful).
+    A fixed limit against the fp32 plain version would not do here: on
+    small matrices with a dominant eigenvalue the carries are
+    ill-conditioned, and the plain version's own carries sit far from fp64
+    (chip_smoke.py phase 14 prints the kernel's and the plain version's
+    distances at m = 16).  At the GLayer's side the same kernels are held
+    to the plain version within 5e-5
+    (test_cheb_kernel_matches_plain, test_cheb_fwd_kernel_is_k4_with_carries,
+    chip_smoke.py phases 10 and 14)."""
+    M, c, _ = _cheb_inputs(cuda, B=8, m=m, degree=degree, seed=100 + degree)
+    M[-1] = 0
+    G4r, G4i = kc.cheb_filter_planes(M, c, degree)
+    Gr, Gi, carries = kc.cheb_fwd_planes(M, c, degree)
+    assert torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
+    Gp, plain = kc.cheb_filter_matrices_plain_with_residuals(M, c, degree)
+    G64, plain64 = kc.cheb_filter_matrices_plain_with_residuals(
+        M.to(torch.complex128), c.double(), degree)
+    G = torch.complex(Gr[:, :m, :m], Gi[:, :m, :m])
+    for x in (Gr, Gi, *carries):
+        assert bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
+        assert bool(torch.all(torch.isfinite(x)))
+    assert torch.equal(G[-1], Gp[-1])  # A = 0: no product carries rounding
+    _fp32_faithful(G[:-1], Gp[:-1], G64[:-1])
+    for k, p, p64 in zip(carries, plain, plain64):
+        assert torch.equal(k[-1, :m, :m], p[-1])
+        _fp32_faithful(k[:-1, :m, :m], p[:-1], p64[:-1])
 
 
 @pytest.mark.cuda
