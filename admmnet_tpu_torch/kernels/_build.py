@@ -33,8 +33,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # Mr, Mi, Pr, Pi, scratch, B, P, coeffs, nsteps, hi_steps, bf16_store, stream
-    "polar_psd_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
+    # Mr, Mi, Pr, Pi, B, P, m, coeffs, nsteps, hi_steps, bf16_store, stream
+    "polar_psd_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
     # yob_r, yob_i, w, A, phi_r, phi_i, B, n, P, num_iters, rho, lam_inv_sq,
     # coeffs, nsteps, hi_steps, outer_iters, inner_iters, final_hi,
     # warm_root, all_hi, three_pass, fold_diag, lists, ablate, stream
@@ -42,8 +42,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # yob_r, yob_i, w, A, phi_r, phi_i, scratch, B, n, P, num_iters, rho,
-    # lam_inv_sq, coeffs, nsteps, outer_iters, inner_iters, stream
+    # yob_r, yob_i, w, A, phi_r, phi_i, zscratch (Z's two planes), B, n, P,
+    # num_iters, rho, lam_inv_sq, coeffs, nsteps, outer_iters, inner_iters,
+    # stream
     "fused_admm_launch": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _P,
     ),

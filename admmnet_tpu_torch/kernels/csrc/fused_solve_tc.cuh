@@ -2,15 +2,14 @@
 // cluster, every product on the tensor cores: the kernel body of K2 (lean:
 // FOLDED, the production fused_fast and fused_exact; LEAN, the unfolded
 // carry and its ablate variants) and K3 (LISTS), launched by
-// fused_admm_fast{,_p128,_ablate,_ablate_p128}.cu.  (K7 stays on the SIMT
-// body of fused_solve.cuh.)
+// fused_admm_fast{,_p128,_ablate,_ablate_p128}.cu.
 //
 // Per iteration, per instance (B = [[diag h, phi], [phi^H, 1/lambda^2]]):
 //   phi  = w (y/b + rho g + z)         g, z: conj of row n of G and Z
 //   t    = diag(G + Z/rho);  h = NewtonProjection of t
 //   M    = B - Z/rho
-//   X    = M / ||M||_F, then the sign schedule (common.cuh's rule: a step
-//          is hi iff all_hi or s >= nsteps - hi_steps, its products split
+//   X    = M / ||M||_F, then the sign schedule (kernels/polar.py's rule: a
+//          step is hi iff all_hi or s >= nsteps - hi_steps, its products split
 //          iff three_pass, the iterate re-projected iff not hi or three_pass)
 //   A    = herm(X M);  G' = (M + A)/2
 //   Z'   = rho (G' - M)                lean;  lists: Z + rho (G' - B)
@@ -38,8 +37,8 @@
 // mma accumulator layout: it is only used elementwise.  Products run in
 // 3xTF32 (fp32-faithful) or, for three_pass hi products, in the split-bf16
 // contract (4 mma per real product; the squarings in the 4-multiplication
-// form, which drops the same terms as common.cuh's herm_square); every
-// right operand is read band by band from its owner over distributed
+// form, which drops the same terms as kernels/polar.py's herm_square with
+// split); every right operand is read band by band from its owner over distributed
 // shared memory.  Nothing but the rows in and phi out touches device memory.
 //
 // Shared memory per CTA: 8 planes of 16 (P + 4) floats, the staging double

@@ -24,10 +24,11 @@
 // the operand sums are formed in fp32 before the split, so no temporary
 // plane is needed and the three real products accumulate in registers.
 //
-// Split-bf16 products (SPLIT): the 3-pass contract of common.cuh's split
-// product, x y ~ xh yh + xh yl + xl yh with xh = bf16_rn(x), xl = x - xh,
-// realized as xh y + xl yh: xh is exact in TF32, so xh y is two mma against
-// y's TF32 split, and xl yh two mma of xl's TF32 split against yh.  The
+// Split-bf16 products (SPLIT): the 3-pass contract of kernels/polar.py's
+// split product (mm with split), x y ~ xh yh + xh yl + xl yh with xh =
+// bf16_rn(x), xl = x - xh, realized as xh y + xl yh: xh is exact in TF32,
+// so xh y is two mma against y's TF32 split, and xl yh two mma of xl's
+// TF32 split against yh.  The
 // dropped xl yl is the contract's own; what the tensor cores add is fp32's
 // level (~2^-21).  Four mma per real product instead of three.  A split
 // product that must drop the same terms as a 4-multiplication complex

@@ -13,8 +13,11 @@ Z' = Z + rho (G' - B).
 ``admm_solve_fused`` launches the CUDA kernel of ``csrc/fused_admm.cu`` for
 CUDA tensors and runs ``admm_solve_fused_plain`` for CPU tensors.  The
 iteration is the lists layout of ``kernels.fused_admm_fast`` with another
-H-projection, so both kernels share ``csrc/fused_solve.cuh`` and both plain
-versions share ``fused_admm_fast.solve_plain``.
+H-projection, so both plain versions share ``fused_admm_fast.solve_plain``.
+On the card the solve runs on K1's body (``csrc/polar_cta.cuh``): one
+thread block per instance (a cluster of two at P = 128) with the sign
+iterate in shared memory and every product in 3xTF32 on the tensor cores
+(fp32-faithful), Z in a two-plane scratch per instance.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from admmnet_tpu_torch.kernels.fused_admm_fast import (
 from admmnet_tpu_torch.kernels.polar import LaunchCounter, padded_side
 from admmnet_tpu_torch.ops.projections import POLAR_QUINTIC_SCHEDULE, project_l1_ball
 
-SCRATCH_PLANES = 11  # fused_solve.cuh's per-block planes: Z, M, the sign schedule's 7
+Z_PLANES = 2  # the kernel's per-instance scratch: Z's real and imaginary planes
 launches = LaunchCounter()
 
 
@@ -88,8 +91,8 @@ def admm_solve_fused(
 
     Equivalent to ``admm_solve_fixed(..., ADMMOptions(g_update="polar"))``
     with the whole loop inside one kernel.  CUDA tensors launch the kernel
-    (one thread block per instance); CPU tensors run
-    ``admm_solve_fused_plain``.
+    (one thread block per instance, or a cluster of two at P = 128); CPU
+    tensors run ``admm_solve_fused_plain``.
     """
     check_rows(y, b)
     B, n = y.shape
@@ -105,14 +108,13 @@ def admm_solve_fused(
     phi_i = torch.empty_like(phi_r)
     if B == 0:
         return torch.complex(phi_r, phi_i)
-    scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32,
-                          device=y.device)
+    zscratch = torch.empty((B, Z_PLANES, P, P), dtype=torch.float32, device=y.device)
     coeffs = np.ascontiguousarray(POLAR_QUINTIC_SCHEDULE, dtype=np.float32)
     lib = _build.lib()
     with torch.cuda.device(y.device):
         err = lib.fused_admm_launch(
             yob_r.data_ptr(), yob_i.data_ptr(), w.data_ptr(), A.data_ptr(),
-            phi_r.data_ptr(), phi_i.data_ptr(), scratch.data_ptr(),
+            phi_r.data_ptr(), phi_i.data_ptr(), zscratch.data_ptr(),
             B, n, P, int(num_iters), float(rho), float(1.0 / lambda_val**2),
             coeffs.ctypes.data, len(POLAR_QUINTIC_SCHEDULE), int(outer_iters),
             int(inner_iters), torch.cuda.current_stream(y.device).cuda_stream,

@@ -16,11 +16,17 @@ Modes, as in the JAX package:
   and elementwise results to bf16, as the JAX kernel's bf16 arithmetic
   does; the hi steps and the closing products run on the fp32 iterate.
 
-Every product is IEEE fp32 in both the kernel and the plain version (what
-the JAX kernel computes in interpret mode); the closing |M| products
-likewise.  The matrices are zero-padded to P = 112 (m <= 112) or P = 128
-(m <= 128) in the kernel; zero eigenvalues are fixed points of every
-schedule, so the padding is exact.
+The plain version computes every product in IEEE fp32 (what the JAX kernel
+computes in interpret mode).  On the card every fp32 product, the closing
+|M| products included, runs in 3xTF32 on the tensor cores (fp32-faithful:
+three TF32 products per product), and ``bf16_store``'s low steps sum
+their exact bf16 products with fp32 FMAs in k order, as the plain version
+does, so that their bf16 roundings fall where the plain version's do.
+The kernel computes each whole product in one thread block (P =
+112, m <= 112) or one cluster of two (P = 128, m <= 128), the planes in
+shared memory (``csrc/polar_cta.cuh``).  The matrices are zero-padded to
+P; zero eigenvalues are fixed points of every schedule, so the padding is
+exact.
 """
 
 from __future__ import annotations
@@ -35,7 +41,6 @@ from admmnet_tpu_torch.ops.projections import (
 )
 
 MAX_SIDE = 128
-SCRATCH_PLANES = 7
 
 
 class LaunchCounter:
@@ -205,14 +210,28 @@ def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
                              hi_steps=None, bf16_store: bool = False) -> torch.Tensor:
     """PSD projection of batched Hermitian complex64 (..., m, m), m <= 128.
 
-    A CUDA tensor launches the CUDA kernel (one thread block per matrix); a
-    CPU tensor runs ``psd_project_polar_plain``.  Any other device raises.
+    A CUDA tensor launches the CUDA kernel (one thread block per matrix, or
+    a cluster of two at P = 128; 3xTF32 tensor-core products); a CPU tensor
+    runs ``psd_project_polar_plain``.  Any other device raises.
     ``bf16_store`` (fast mode only, as in the JAX package) keeps the iterate
     of the low steps in bf16.
     """
-    P = _check_matrix(M)
+    _check_matrix(M)
     if M.device.type == "cpu":
         return psd_project_polar_plain(M, mode, hi_steps, bf16_store)
+    batch_shape, m = M.shape[:-2], M.shape[-1]
+    if M.numel() == 0:
+        return M.clone()
+    Pr, Pi = psd_project_polar_planes(M, mode, hi_steps, bf16_store)
+    out = torch.complex(Pr[:, :m, :m], Pi[:, :m, :m])
+    return out.reshape(*batch_shape, m, m)
+
+
+def psd_project_polar_planes(M: torch.Tensor, mode: str = "accurate", hi_steps=None,
+                             bf16_store: bool = False):
+    """Launch K1 on a CUDA tensor (..., m, m); returns its zero-padded output
+    planes (Pr, Pi), each (B, P, P) float32 with B the flattened batch."""
+    P = _check_matrix(M)
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     if not M.is_contiguous():
@@ -220,28 +239,23 @@ def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
     from admmnet_tpu_torch.kernels import _build
 
     schedule, hi_steps = schedule_for(mode, hi_steps)
-    batch_shape, m = M.shape[:-2], M.shape[-1]
+    m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
     B = Mf.shape[0]
-    if B == 0:
-        return M.clone()
     pad = (0, P - m, 0, P - m)
     Mr = torch.nn.functional.pad(Mf.real, pad).contiguous()
     Mi = torch.nn.functional.pad(Mf.imag, pad).contiguous()
     Pr = torch.empty_like(Mr)
     Pi = torch.empty_like(Mi)
-    scratch = torch.empty((B, SCRATCH_PLANES, P, P), dtype=torch.float32,
-                          device=M.device)
     coeffs = np.ascontiguousarray(schedule, dtype=np.float32)
     lib = _build.lib()
     with torch.cuda.device(M.device):
         err = lib.polar_psd_launch(
             Mr.data_ptr(), Mi.data_ptr(), Pr.data_ptr(), Pi.data_ptr(),
-            scratch.data_ptr(), B, P, coeffs.ctypes.data, len(schedule), hi_steps,
+            B, P, m, coeffs.ctypes.data, len(schedule), hi_steps,
             int(bf16_store and mode == "fast"),
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "polar_psd_launch")
     launches.count += 1
-    out = torch.complex(Pr[:, :m, :m], Pi[:, :m, :m])
-    return out.reshape(*batch_shape, m, m)
+    return Pr, Pi

@@ -24,7 +24,9 @@ and holding each kernel against its plain PyTorch version:
   escape hatch ``ADMMOptions(fused_layout="lists", ...)`` (anchor and
   random-scene gates), the first-generation fused solve K7 against its
   plain version, the per-step polar solve and the eigh golden, K1's bf16
-  iterate storage, the ``bench_time`` CLI, and their timings; then K2's
+  iterate storage, the ``bench_time`` CLI, and their timings (K1 and K7 on
+  the whole-product body of ``polar_cta.cuh``; phase 2 counts their HMMA
+  instructions too); then K2's
   subtraction profile by its ``ablate`` variants (phase 25).
 
 Every phase prints one line with its numbers and the tolerance it is held
@@ -37,10 +39,12 @@ that a JSON summary of the kernels.  Run from the
 repository root with ``python3 chip_smoke.py``; it needs one CUDA device
 and exits non-zero without one.  ``python3 chip_smoke.py --time-cheb``
 runs only phases 12 and 17's timing of K4 and K5 (``time_cheb``) and
-``--time-k6`` only phase 17's timing of K6 (``time_k6``), to pair two
-trees;
-``python3 chip_smoke.py --profile-k2`` only phase 25, the subtraction
-profile of K2 by its ``ablate`` variants (``k2_profile``).
+``--time-k6`` only phase 17's timing of K6 (``time_k6``),
+``--time-polar`` only K1's and K7's timing (``time_polar``) and
+``--codegen`` only phase 2's registers, spills and HMMA counts
+(``codegen``), to pair two trees; ``python3 chip_smoke.py --profile-k2``
+only phase 25, the subtraction profile of K2 by its ``ablate`` variants
+(``k2_profile``).
 """
 
 from __future__ import annotations
@@ -116,6 +120,12 @@ PEAK_BYTES = 3.35e12
 # K4/K5's body (csrc/cheb_filter.cu), named in the kernels summary
 CHEB_FWD_BODY = ("one thread-block cluster of P / 16 CTAs per matrix, bands in shared "
                  "memory, 3xTF32 mma.sync products (tc_product.cuh)")
+# K1's and K7's body (csrc/polar_cta.cuh), named in the kernels summary
+POLAR_BODY = ("one CTA per matrix or instance (a cluster of two at P = 128), the planes in "
+              "shared memory, each whole product a 3xTF32 mma.sync product of the CTA "
+              "(polar_cta.cuh); bf16_store's low steps in fp32 FMAs")
+POLAR_REPS = 10  # timed calls of K1 per mode (--time-polar; the median is reported)
+K7_REPS = 3  # timed calls of K7 per projection depth (--time-polar)
 
 # Tolerances, with their reasons:
 # - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py).
@@ -515,6 +525,65 @@ def tc_solve_smem_bytes(P: int) -> int:
     return 4 * (8 * 16 * (P + 4) + 4 * 16 * (P + 8) + 10 * 128 + 80)
 
 
+def log_ptxas(tag: str) -> None:
+    """Phase 2's ptxas report of this process's build: registers and spills
+    of every instantiation, demangled."""
+    from admmnet_tpu_torch.kernels import _build
+
+    for name, text in _build.build_logs.items():
+        entry = ""
+        for ln in text.splitlines():
+            if "Compiling entry function" in ln:
+                entry = demangle(ln.split("'")[1])
+            elif "registers" in ln or "spill" in ln:
+                log(f"{tag}   {name} {entry}: ptxas {ln.strip()}")
+
+
+# kernel name fragment -> the TPU kernels it serves (phase 2's SASS count)
+SASS_KEYS = {"cheb_filter_kernel": "K4/K5", "cheb_bwd_kernel": "K6", "fused_tc_kernel": "K2/K3",
+             "polar_cta_kernel": "K1", "fused_cta_kernel": "K7"}
+
+
+def sass_counts() -> dict:
+    """{mangled name: (key, HMMA, LDL, STL)} of the built library's kernels
+    named in SASS_KEYS, from ``cuobjdump -sass``."""
+    import re
+    import shutil
+
+    from admmnet_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        key = next((v for k, v in SASS_KEYS.items() if k in name), None)
+        if key is not None:
+            found[name] = (key, block.count("HMMA"), block.count("LDL"), block.count("STL"))
+    return found
+
+
+def polar_cta_smem_bytes(P: int, k7: bool) -> int:
+    """polar_cta.cuh's dynamic shared memory a CTA: four planes of P / NC
+    rows of P + 8 floats (NC = 1 at P = 112, 2 at P = 128), at NC = 2 a
+    stage of the peer's rows of two planes, and 64 slot floats; K7 adds 12
+    rows of 128 floats."""
+    nc = 1 if P == 112 else 2
+    rows = P // nc
+    return 4 * ((4 + 2 * (nc - 1)) * rows * (P + 8) + 64 + (12 * 128 if k7 else 0))
+
+
+def polar_bounds(B: int, nsteps: int, m: int = 101):
+    """(3xTF32 bound ms, what bounds it, fp32 SIMT bound ms) of K1 with
+    nsteps schedule steps at batch B: 9 real m^3 products a step and 3
+    closing ones, against one read of M and one write of P."""
+    flops = B * (9 * nsteps + 3) * 2.0 * m**3
+    nbytes = B * 2 * m * m * 8
+    b, by = tf32x3_bound(flops, nbytes)
+    return b, by, bound(flops, nbytes)[0]
+
+
 def demangle(name: str) -> str:
     """A C++ symbol's readable name (c++filt where the machine has it)."""
     import shutil
@@ -620,8 +689,9 @@ class Smoke:
         t0 = time.time()
         _build.lib()
         secs = time.time() - t0
-        log(f"[2 build] K1 polar.cu + K2/K3 fused_admm_fast.cu (P = 128: fused_admm_fast_p128.cu;"
-            f" ablate: fused_admm_fast_ablate{{,_p128}}.cu; body fused_solve_tc.cuh)"
+        log(f"[2 build] K1 polar.cu (body polar_cta.cuh) + K2/K3 fused_admm_fast.cu (P = 128:"
+            f" fused_admm_fast_p128.cu; ablate: fused_admm_fast_ablate{{,_p128}}.cu; body"
+            f" fused_solve_tc.cuh)"
             f" + K7 fused_admm.cu + K4/K5 cheb_filter.cu + K6 cheb_bwd.cu (products"
             f" tc_product.cuh), one nvcc each in "
             f"parallel: {secs:.1f} s (nvcc "
@@ -630,47 +700,26 @@ class Smoke:
         if _build.compile_seconds:
             log("[2 build] nvcc wall seconds per source: " + ", ".join(
                 f"{name} {secs:.1f}" for name, secs in sorted(_build.compile_seconds.items())))
-        for name, text in _build.build_logs.items():
-            entry = ""
-            for ln in text.splitlines():
-                if "Compiling entry function" in ln:
-                    entry = demangle(ln.split("'")[1])
-                elif "registers" in ln or "spill" in ln:
-                    log(f"[2 build]   {name} {entry}: ptxas {ln.strip()}")
+        log_ptxas("[2 build]")
         for P in (112, 128):
             log(f"[2 build] K2/K3 dynamic shared memory a CTA at P = {P}: "
                 f"{tc_solve_smem_bytes(P)} B (fused_solve_tc.cuh's count); K4/K5 "
-                f"{cheb_fwd_smem_bytes(P)} B (cheb_filter.cu's count)")
+                f"{cheb_fwd_smem_bytes(P)} B (cheb_filter.cu's count); K1 "
+                f"{polar_cta_smem_bytes(P, False)} B, K7 {polar_cta_smem_bytes(P, True)} B "
+                f"(polar_cta.cuh's count)")
 
     def tc_sass(self):
-        """The products of K4/K5, K6 and every K2/K3 instantiation reach the
-        tensor cores: HMMA instructions in their SASS."""
-        import re
-        import shutil
-
-        from admmnet_tpu_torch.kernels import _build
-
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
-        found = {}
-        for block in re.split(r"\n\s*Function : ", sass)[1:]:
-            name = block.split("\n", 1)[0].strip()
-            if any(k in name for k in ("cheb_filter_kernel", "cheb_bwd_kernel", "fused_tc_kernel")):
-                found[name] = (block.count("HMMA"), block.count("LDL"), block.count("STL"))
-        keys = {"cheb_filter_kernel": "K4/K5", "cheb_bwd_kernel": "K6", "fused_tc_kernel": "K2/K3"}
-
-        def key(name):
-            return next(v for k, v in keys.items() if k in name)
-
-        for name, (hmma, ldl, stl) in sorted(found.items()):
-            log(f"[2 {key(name)} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
+        """The products of K1, K2/K3, K4/K5, K6 and K7 reach the tensor cores:
+        HMMA instructions in the SASS of every instantiation."""
+        found = sass_counts()
+        for name, (key, hmma, ldl, stl) in sorted(found.items()):
+            log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
                 f"(local memory)")
-        hmma = {v: [h for name, (h, _, _) in found.items() if key(name) == v]
-                for v in keys.values()}
+        hmma = {v: [h for k, h, _, _ in found.values() if k == v] for v in SASS_KEYS.values()}
         # K4/K5 and K6 at P = 112, 128; K2/K3: 5 instantiations and 7 ablate
-        # variants at each of P = 112, 128
-        check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3")] == [2, 2, 24]
+        # variants at each of P = 112, 128; K1 with and without bf16_store
+        # and K7 at each of P = 112, 128
+        check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3", "K1", "K7")] == [2, 2, 24, 4, 2]
               and min(sum(hmma.values(), [])) > 0,
               "a tensor-core kernel's SASS has no HMMA instruction")
 
@@ -900,14 +949,15 @@ class Smoke:
         for mode in ("accurate", "fast"):
             k1 = cuda_ms(lambda: psd_project_polar_kernel(M, mode=mode), reps=3)
             k1p = cuda_ms(lambda: psd_project_polar_plain(M, mode=mode), reps=3)
-            nsteps = 7 if mode == "accurate" else 6
-            k1_bound, k1_by = bound(B_TIME_K1 * (9 * nsteps + 3) * 2.0 * 101**3,
-                                    B_TIME_K1 * 2 * 101 * 101 * 8)
+            k1_bound, k1_by, k1_fp32 = polar_bounds(B_TIME_K1, 7 if mode == "accurate" else 6)
             log(f"[9 time K1 {mode}] B={B_TIME_K1} m=101: kernel {k1:.2f} ms, "
-                f"plain {k1p:.2f} ms per call; bound {k1_bound:.2f} ms ({k1_by}) {tag}")
+                f"plain {k1p:.2f} ms per call; 3xTF32 tensor-core bound {k1_bound:.2f} ms "
+                f"({k1_by}; {k1_bound / k1:.1%} of it), fp32 SIMT bound {k1_fp32:.2f} ms "
+                f"({k1_fp32 / k1:.1%} of it) {tag}")
             if mode == "accurate":
                 self.kernels["K1"].update(ms=k1, plain_ms=k1p, bound_ms=k1_bound,
-                                          bound_by=k1_by, library_ms=None)
+                                          bound_by=k1_by, library_ms=None, body=POLAR_BODY,
+                                          fp32_bound_ms=k1_fp32)
 
         def deploy():
             pk = find_peaks(admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0, self.prod),
@@ -1604,22 +1654,31 @@ class Smoke:
 
         y, b, s = (x[:B_EXACT] for x in self.anchor)
         ms = cuda_ms(lambda: k7.admm_solve_fused(y, b, s, ITERS))
-        bms, by = bound(solve_flops(B_EXACT * ITERS, 7), solve_bytes(B_EXACT))
+        flops = solve_flops(B_EXACT * ITERS, 7)
+        bms, by = tf32x3_bound(flops, solve_bytes(B_EXACT))
+        fp32_ms, _ = bound(flops, solve_bytes(B_EXACT))
         log(f"[23 time K7] B={B_EXACT} x {ITERS}: kernel {ms:.1f} ms "
             f"({B_EXACT * ITERS / ms * 1e3:.0f} inst-iter/s), plain {self.k7_plain_ms:.1f} ms "
-            f"(one run, phase 20); bound {bms:.1f} ms ({by}) {tag}")
+            f"(one run, phase 20); 3xTF32 tensor-core bound {bms:.1f} ms ({by}; "
+            f"{bms / ms:.1%} of it), fp32 SIMT bound {fp32_ms:.1f} ms ({fp32_ms / ms:.1%} of "
+            f"it) {tag}")
         self.kernels["K7"].update(ms=ms, plain_ms=self.k7_plain_ms, bound_ms=bms, bound_by=by,
-                                  library_ms=None)
+                                  library_ms=None, body=POLAR_BODY, fp32_bound_ms=fp32_ms)
 
         M = random_hermitian(np.random.default_rng(1), B_TIME_K1, 101, self.dev)
         ms = cuda_ms(lambda: psd_project_polar_kernel(M, mode="fast", bf16_store=True), reps=3)
         pms = cuda_ms(lambda: psd_project_polar_plain(M, "fast", bf16_store=True), reps=3)
         # the 6 low steps' 9 products each take bf16-valued operands; the 3
-        # closing products read the fp32 M
-        bms, by = bound(B_TIME_K1 * 3 * 2.0 * 101**3, B_TIME_K1 * 2 * 101 * 101 * 8,
-                        bf16_flops=B_TIME_K1 * 9 * 6 * 2.0 * 101**3)
+        # closing products read the fp32 M: in 3xTF32 on the tensor cores, or
+        # as fp32 SIMT FMAs beside it
+        closing, nbytes = B_TIME_K1 * 3 * 2.0 * 101**3, B_TIME_K1 * 2 * 101 * 101 * 8
+        low = B_TIME_K1 * 9 * 6 * 2.0 * 101**3
+        t_ops, t_bytes = low / PEAK_BF16 + 3 * closing / PEAK_TF32, nbytes / PEAK_BYTES
+        bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        fp32_ms, _ = bound(closing, nbytes, bf16_flops=low)
         log(f"[23 time K1 fast bf16_store] B={B_TIME_K1} m=101: kernel {ms:.2f} ms, plain "
-            f"{pms:.2f} ms per call; bound {bms:.2f} ms ({by}) {tag}")
+            f"{pms:.2f} ms per call; bound (bf16 low steps, 3xTF32 closing) {bms:.3f} ms "
+            f"({by}; {bms / ms:.1%} of it), with fp32 SIMT closing {fp32_ms:.3f} ms {tag}")
 
 
 def main() -> int:
@@ -1749,6 +1808,57 @@ def time_cheb() -> int:
     return 0
 
 
+def time_polar() -> int:
+    """``--time-polar``: K1 (accurate, fast, fast with bf16_store) at
+    B = 2048 m = 101, the median of POLAR_REPS CUDA-event calls each, and K7
+    at B = 512 x 100 iterations with the default 32 x 32 nested projection
+    and with outer_iters = inner_iters = 1 (the projection's share), the
+    median of K7_REPS calls each; to compare two trees on one card as
+    ``--time-k6`` does."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: K1's and K7's timing needs one GPU")
+    from admmnet_tpu_torch.data.anchor import make_anchor_batch
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.kernels import fused_admm as k7
+    from admmnet_tpu_torch.kernels.polar import psd_project_polar_kernel
+
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    tag = f"[{card()}]"
+
+    def report(name, calls):
+        log(f"[time {name}] {ROOT}: median {np.median(calls):.3f} ms, mean "
+            f"{np.mean(calls):.3f} ms; calls {' '.join(f'{t:.3f}' for t in calls)} {tag}")
+
+    M = random_hermitian(np.random.default_rng(1), B_TIME_K1, 101, dev)
+    for label, kw in (("accurate", dict(mode="accurate")), ("fast", dict(mode="fast")),
+                      ("fast bf16_store", dict(mode="fast", bf16_store=True))):
+        report(f"K1 {label} B={B_TIME_K1}",
+               call_ms(lambda: psd_project_polar_kernel(M, **kw), POLAR_REPS))
+    del M
+    y, b, s = to_dev(dev, *make_anchor_batch(B_EXACT, "redemod", seed=0))
+    for depth in (32, 1):
+        report(f"K7 B={B_EXACT} x {ITERS} projection {depth}/{depth}",
+               call_ms(lambda: k7.admm_solve_fused(y, b, s, ITERS, outer_iters=depth,
+                                                    inner_iters=depth), K7_REPS))
+    return 0
+
+
+def codegen() -> int:
+    """``--codegen``: build the kernels and print phase 2's ptxas report
+    (registers and spills of every instantiation) and the HMMA and
+    local-memory instruction counts of the tensor-core kernels, to compare
+    the code of two trees as ``--time-k6`` pairs their times."""
+    from admmnet_tpu_torch.kernels import _build
+
+    _build.lib()
+    log(f"[codegen] {ROOT}")
+    log_ptxas("[codegen]")
+    for name, (key, hmma, ldl, stl) in sorted(sass_counts().items()):
+        log(f"[codegen {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL")
+    return 0
+
+
 def time_k6() -> int:
     """``--time-k6``: phase 17's timing of K6 alone, to compare two trees on
     one card.  Copy this file into the root of the other tree (for example
@@ -1795,8 +1905,14 @@ if __name__ == "__main__":
                            "nothing else")
     mode.add_argument("--time-k6", action="store_true",
                       help="time K6 alone as phase 17 does (see time_k6) and run nothing else")
+    mode.add_argument("--codegen", action="store_true",
+                      help="print the kernels' registers, spills and HMMA counts (see codegen) "
+                           "and run nothing else")
+    mode.add_argument("--time-polar", action="store_true",
+                      help="time K1 and K7 alone (see time_polar) and run nothing else")
     mode.add_argument("--profile-k2", action="store_true",
                       help="run K2's subtraction profile alone (phase 25, see k2_profile)")
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
+             else time_polar() if args.time_polar else codegen() if args.codegen
              else profile_k2() if args.profile_k2 else main())

@@ -6,8 +6,9 @@ without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: kernel and plain version compute every product in fp32 with
-sums in another order; through the accurate schedule's amplification that
+Tolerances: kernel (3xTF32 on the tensor cores, fp32-faithful; K1's
+bf16_store low steps in fp32 FMAs) and plain version compute every
+product in fp32 with sums in another order; through the accurate schedule's amplification that
 stays below 1e-4 relative for one projection, below 1e-3 for 20
 iterations of the fused solves (where a last-bit difference can also flip
 a bisection decision of the H-projection), below 1e-2 for the bf16
@@ -63,6 +64,58 @@ def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
     assert kp.launches.count == before + 1
     assert _rel(Pk, kp.psd_project_polar_plain(M, mode=mode)) < 1e-4
     assert _rel(Pk, psd_project_eigh(M)) < eigh_tol
+
+
+POLAR_MODES = [("accurate", None, False), ("fast", 0, False), ("fast", 1, False),
+               ("fast", 0, True), ("fast", 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 10, 16, 101, 112, 113, 120, 128])
+@pytest.mark.parametrize("mode, hi_steps, bf16_store", POLAR_MODES)
+def test_polar_kernel_edges(cuda, m, mode, hi_steps, bf16_store):
+    """K1 at the sides where its body changes shape (m <= 112: one CTA per
+    matrix on planes of side 112; m >= 113: a cluster of two on side 128;
+    m = 1, 10, 16: most of the planes padding) in every mode, on an odd
+    batch whose last matrix is zero: the zero matrix exactly zero, every
+    padded row and column exactly 0, the rest held to the plain version.
+    The error is taken against ||M|| (a 1 x 1 projection of a negative
+    entry is exactly 0): the fp32 modes within 1e-4, bf16_store's median
+    matrix within 1e-5 and every matrix within 1e-2 (where a sum in another
+    order flips one bf16 rounding)."""
+    rng = np.random.default_rng(m)
+    X = rng.normal(size=(5, m, m)) + 1j * rng.normal(size=(5, m, m))
+    M = torch.from_numpy(np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2,
+                                              np.complex64)).to(cuda)
+    M[-1] = 0
+    before = kp.launches.count
+    Pr, Pi = kp.psd_project_polar_planes(M, mode, hi_steps, bf16_store)
+    assert kp.launches.count == before + 1
+    for x in (Pr, Pi):
+        assert bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
+        assert bool(torch.all(torch.isfinite(x)))
+        assert bool(torch.all(x[-1] == 0))
+    Pk = torch.complex(Pr[:-1, :m, :m], Pi[:-1, :m, :m])
+    Pp = kp.psd_project_polar_plain(M[:-1], mode, hi_steps, bf16_store)
+    err = (torch.linalg.norm((Pk - Pp).reshape(4, -1), dim=-1)
+           / torch.linalg.norm(M[:-1].reshape(4, -1), dim=-1))
+    if bf16_store:
+        assert float(err.median()) < 1e-5 and float(err.max()) < 1e-2
+    else:
+        assert float(err.max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, m", [(1, 101), (7, 101), (1, 120), (7, 120)])
+def test_polar_kernel_batch_sizes(cuda, B, m):
+    """K1 on one matrix and on an odd batch, through the wrapper."""
+    rng = np.random.default_rng(B)
+    X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    M = torch.from_numpy(np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2,
+                                              np.complex64)).to(cuda)
+    Pk = kp.psd_project_polar_kernel(M)
+    assert Pk.shape == M.shape
+    assert _rel(Pk, kp.psd_project_polar_plain(M)) < 1e-4
 
 
 GRIDS = {10: (2, 5), 16: (4, 4), 111: (3, 37), 119: (7, 17), 126: (7, 18)}
@@ -156,6 +209,20 @@ def test_k7_kernel_matches_plain(cuda):
     before = k7.launches.count
     pk = k7.admm_solve_fused(y, b, s, 20, 2.0, 0.5)
     assert k7.launches.count == before + 1
+    assert _rel(pk, k7.admm_solve_fused_plain(y, b, s, 20, 2.0, 0.5)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, B", [(119, 8), (100, 1)])
+def test_k7_kernel_edges(cuda, n, B):
+    """K7 at plane side 128 (n = 119, the anchor's targets on a 7 x 17 grid:
+    a cluster of two CTAs per instance) and on a single instance, held to
+    its plain version as test_k7_kernel_matches_plain is."""
+    y, b, s = (x[:B] for x in _anchor_rows(n, cuda))
+    before = k7.launches.count
+    pk = k7.admm_solve_fused(y, b, s, 20, 2.0, 0.5)
+    assert k7.launches.count == before + 1
+    assert pk.shape == (B, n)
     assert _rel(pk, k7.admm_solve_fused_plain(y, b, s, 20, 2.0, 0.5)) < 1e-3
 
 

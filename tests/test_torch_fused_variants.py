@@ -103,6 +103,27 @@ def test_k7_plain_matches_interpret(B, iters, rho, lam, tol):
     assert _rel(t.numpy(), j) < tol
 
 
+def test_k7_plain_matches_interpret_at_plane_side_128():
+    """K7's plain version at n = 119 (lifted side 120: plane side 128, where
+    the card's kernel runs as a cluster of two CTAs): the anchor's three
+    targets on a 7 x 17 grid with QPSK symbols and 20 dB noise, 2 instances
+    x 4 iterations, the bound of the short solve above."""
+    from admmnet_tpu_torch.data.anchor import ANCHOR_C, ANCHOR_F, ANCHOR_TAU, _psi
+
+    rng = np.random.default_rng(5)
+    n = 7 * 17
+    b = np.exp(1j * (np.pi / 2 * rng.integers(0, 4, size=(2, n)) + np.pi / 4))
+    clean = b * _psi(ANCHOR_TAU, ANCHOR_F, ANCHOR_C, 7, 17)[None]
+    scale = np.linalg.norm(clean, axis=-1, keepdims=True) / np.sqrt(200.0 * n)
+    y = clean + scale * (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n)))
+    y, b = y.astype(np.complex64), b.astype(np.complex64)
+    s = np.full(2, 1.5, np.float32)
+    j = jax_k7(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), 4, interpret=True)
+    t = k7.admm_solve_fused(*_tensors(y, b, s), 4)
+    assert t.shape == y.shape and bool(np.all(np.isfinite(np.asarray(j))))
+    assert _rel(t.numpy(), j) < 1e-4
+
+
 def test_k7_plain_matches_the_polar_solve():
     """tests/test_fused_kernel.py's bound, against the port's per-step
     g_update="polar" solve."""

@@ -70,3 +70,18 @@ def test_wrapper_input_checks():
     with pytest.raises(ValueError, match="unknown mode"):
         kp.psd_project_polar_kernel(M, mode="exact")
     assert [kp.padded_side(m) for m in (1, 101, 112, 113, 128)] == [112, 112, 112, 128, 128]
+
+
+@pytest.mark.parametrize("m", [120, 1])
+def test_plain_matches_pallas_interpret_at_the_edge_sides(m):
+    """The plain version at the sides where the card's kernel changes shape:
+    m = 120 (plane side 128, a cluster of two CTAs on the card) and m = 1
+    (one entry, the rest padding).  The error is taken against ||M||, as a
+    1 x 1 projection of a negative entry is exactly 0."""
+    M = _hermitian(np.random.default_rng(12), (2,), m)
+    Pj = np.asarray(psd_project_polar_pallas(jnp.asarray(M), interpret=True, mode="accurate"))
+    Pt = kp.psd_project_polar_kernel(torch.from_numpy(M)).numpy()
+    assert Pt.shape == M.shape
+    err = np.linalg.norm((Pt - Pj).reshape(2, -1), axis=-1) / np.linalg.norm(M.reshape(2, -1),
+                                                                              axis=-1)
+    assert float(err.max()) < 2e-5
