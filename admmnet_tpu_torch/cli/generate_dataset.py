@@ -1,7 +1,7 @@
 """Dataset generation CLI on the port.
 
-Same flags and on-disk layout as ``admmnet_tpu.cli.generate_dataset``,
-without ``--stats-plot``, plus ``--device`` (default ``cuda``, which raises
+Same flags and on-disk layout as ``admmnet_tpu.cli.generate_dataset``
+(``--stats-plot`` needs matplotlib), plus ``--device`` (default ``cuda``, which raises
 without a GPU; ``cpu`` draws and labels on the CPU, where the fused solve
 runs its plain PyTorch version).  The draws come from torch generators
 seeded from ``--seed``, so the scenes differ from the JAX package's for the
@@ -36,6 +36,8 @@ def build_parser():
     p.add_argument("--phi-iters", type=int, default=100)
     p.add_argument("--phi-g-update", default="fused_exact",
                    help="PSD step of the labeller (fused_exact|polar|newton_schulz|eigh)")
+    p.add_argument("--stats-plot", action="store_true",
+                   help="write dataset_statistics.png (reference visualize_dataset_stats)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda generates and labels on the GPU (raises without one)")
     return p
@@ -57,6 +59,14 @@ def main(argv=None):
         total_samples=args.total, seed=args.seed, with_phi=args.with_phi,
         phi_iters=args.phi_iters, phi_opts=ADMMOptions(g_update=args.phi_g_update),
         device=dev, log=lambda msg: print(msg, flush=True))
+    if args.stats_plot:
+        from pathlib import Path
+
+        from admmnet_tpu_torch.utils.plotting import plot_dataset_statistics
+
+        p = plot_dataset_statistics(gen.load_split("train"),
+                                    str(Path(args.out) / "dataset_statistics.png"))
+        print(f"stats figure: {p}")
     print(f"dataset written to {args.out}")
 
 

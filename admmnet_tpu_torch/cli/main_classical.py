@@ -1,13 +1,14 @@
 """Classical end-to-end pipeline CLI on the port (reference main.py:8-137).
 
 Builds the anchor scenario (data modes fresh/redemod/fixed_e), runs the
-batched ADMM, peak-searches, and prints the top-L peaks sorted by height.
+batched ADMM, peak-searches, and prints the top-L peaks sorted by height;
+``--plot DIR`` writes the figures (matplotlib needed then only).
 
 ``--device cuda`` (the default) runs on the GPU and launches the CUDA
 kernels; it raises when no GPU is available.  ``--device cpu`` is the
 explicit route to the kernels' plain PyTorch versions.
 
-Usage: python -m admmnet_tpu_torch.cli.main_classical [--mode fixed_e] [--deploy]
+Usage: python -m admmnet_tpu_torch.cli.main_classical [--mode fixed_e] [--deploy] [--plot out/]
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--snr-w", type=float, default=20.0)
     p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.add_argument("--plot", default=None, help="directory for output figures")
     p.add_argument("--deploy", action="store_true",
                    help="gated deployment point: fused fixed-budget solve "
                         "(DETECTION_BUDGET_ITERS=10) + PRODUCTION_PEAKS; "
@@ -130,6 +132,18 @@ def main(argv=None):
         print(f"truth tau={sc.tau.tolist()} f={sc.f.tolist()}")
         print(f"detection F1={stats['f1']:.3f} tau_rmse={stats['tau_rmse']:.4f} "
               f"f_rmse={stats['f_rmse']:.4f}")
+
+    if args.plot:
+        from pathlib import Path
+
+        from admmnet_tpu_torch.utils.plotting import plot_peaks, plot_predictions_vs_truth
+
+        d = Path(args.plot)
+        d.mkdir(parents=True, exist_ok=True)
+        plot_predictions_vs_truth(sc.f, sc.tau, rows, str(d / "pred_vs_truth.png"))
+        plot_peaks(phi.cpu().numpy(), sc.Nb, sc.Nd, {"tau": sc.tau, "f": sc.f},
+                   str(d / "peaks_surface.png"))
+        print(f"plots written to {d}")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Loads a trained ``PhiEstADMMNet`` checkpoint (as the JAX package writes
 it), runs phi inference on the anchor scenario, peak-searches, and prints
 the top-L peaks.  Same flags and JSON as ``admmnet_tpu.cli.main_net``
-without ``--plot``, plus ``--device`` (default ``cuda``, which raises
+(``--plot DIR`` needs matplotlib), plus ``--device`` (default ``cuda``, which raises
 without a GPU; ``cpu`` runs the kernels' plain PyTorch versions).
 
 Usage: python -m admmnet_tpu_torch.cli.main_net --ckpt runs/phi10 [--mode fixed_e]
@@ -31,6 +31,7 @@ def build_parser():
     p.add_argument("--top", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true")
+    p.add_argument("--plot", default=None, help="directory for output figures")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda launches the CUDA kernels (raises without a GPU); "
                         "cpu runs their plain PyTorch versions")
@@ -57,7 +58,8 @@ def main(argv=None):
     sigma = torch.tensor([sc.sigma], dtype=torch.float32, device=dev)
     pcfg = PeakSearchConfig()
     with torch.inference_mode():
-        peaks = find_peaks(model(y, b, sigma), sc.Nb, sc.Nd, pcfg)
+        phi = model(y, b, sigma)
+        peaks = find_peaks(phi, sc.Nb, sc.Nd, pcfg)
     tau, f, height, valid = (x.cpu().numpy()[0] for x in peaks)
     rows = [[float(tau[i]), float(f[i]), float(height[i])]
             for i in range(min(args.top, pcfg.max_peaks)) if bool(valid[i])]
@@ -77,6 +79,18 @@ def main(argv=None):
             print(f"  {i + 1}. [{r[0]:.4f}, {r[1]:+.4f}, {r[2]:.2f}]")
         print(f"truth tau={sc.tau.tolist()} f={sc.f.tolist()}")
         print(f"F1={stats['f1']:.3f}")
+
+    if args.plot:
+        from pathlib import Path
+
+        from admmnet_tpu_torch.utils.plotting import plot_peaks, plot_predictions_vs_truth
+
+        d = Path(args.plot)
+        d.mkdir(parents=True, exist_ok=True)
+        plot_predictions_vs_truth(sc.f, sc.tau, rows, str(d / "net_pred_vs_truth.png"))
+        plot_peaks(phi[0].cpu().numpy(), sc.Nb, sc.Nd, {"tau": sc.tau, "f": sc.f},
+                   str(d / "net_peaks_surface.png"), title=f"Net-{args.num_layers}")
+        print(f"plots written to {d}")
 
 
 if __name__ == "__main__":

@@ -204,14 +204,17 @@ class DatasetGenerator:
 
 
 def iterate_batches(data: Dict[str, np.ndarray], batch_size: int, shuffle: bool = True,
-                    seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                    seed: int = 0, drop_remainder: bool = False
+                    ) -> Iterator[Dict[str, np.ndarray]]:
     """Host-side minibatches; the order of the JAX package's iterator
     (``np.random.default_rng(seed).shuffle``), so both packages see the same
-    minibatches from the same arrays."""
+    minibatches from the same arrays.  ``drop_remainder`` leaves out the
+    last, short minibatch (data parallelism needs equal shards)."""
     N = data["y"].shape[0]
     idx = np.arange(N)
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
-    for i in range(0, N, batch_size):
+    stop = N - (N % batch_size) if drop_remainder else N
+    for i in range(0, stop, batch_size):
         sel = idx[i:i + batch_size]
         yield {k: v[sel] for k, v in data.items()}

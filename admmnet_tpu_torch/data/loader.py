@@ -133,15 +133,17 @@ class PrefetchLoader:
     up to ``PREFETCH`` batches ahead in a background thread.  Float and
     complex arrays go through the C++ gather; integer arrays (``L_true``)
     are indexed in numpy.  Yields dicts of numpy arrays, every row once, as
-    ``iterate_batches`` does."""
+    ``iterate_batches`` does; ``drop_remainder`` leaves out the last, short
+    minibatch."""
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, drop_remainder: bool = False):
         if not ensure_built():
             raise RuntimeError("native loader unavailable; use iterate_batches")
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_remainder = drop_remainder
         self._float_keys = [k for k, v in data.items() if v.dtype.kind in "fc"]
         self._other = {k: v for k, v in data.items() if v.dtype.kind not in "fc"}
         self._views = {k: _SplitComplex(data[k]) for k in self._float_keys}
@@ -165,7 +167,8 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = (shuffle_indices(self.n, self.seed) if self.shuffle
                  else np.arange(self.n, dtype=np.int64))
-        starts = list(range(0, self.n, self.batch_size))
+        stop = self.n - (self.n % self.batch_size) if self.drop_remainder else self.n
+        starts = list(range(0, stop, self.batch_size))
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
 
         def producer():
@@ -183,4 +186,6 @@ class PrefetchLoader:
         t.join()
 
     def __len__(self) -> int:
+        if self.drop_remainder:
+            return self.n // self.batch_size
         return (self.n + self.batch_size - 1) // self.batch_size

@@ -175,7 +175,14 @@ class ZLayer(nn.Module):
     """Dual ascent with a learned adaptive step: step = softplus(rho) * scale,
     scale in [0.5, 2] from an MLP on [k/10, rho, ||R|| / mean_batch(||R||)].
     The mean couples the instances of a batch, as in the reference: the
-    output of one instance depends on the batch it is evaluated in."""
+    output of one instance depends on the batch it is evaluated in.
+
+    ``batch_group``: None (the default) takes the mean over this process's
+    batch.  Under data parallelism (``parallel.mesh.bind_batch_mean``) it is
+    the fleet's process group, and the mean is over the global batch: the
+    sum and the count all-reduced, the gradient of the sum all-reduced in
+    the backward, so each rank's shard sees the mean the whole batch has
+    in one process."""
 
     def __init__(self, dim: int, scale_hidden: int = 32, epsilon: float = 1e-8,
                  ref_stop_gradients: bool = True):
@@ -186,6 +193,16 @@ class ZLayer(nn.Module):
         self.rho = scalar(1.0)
         self.scale_hidden = Dense(3, scale_hidden)
         self.scale_out = Dense(scale_hidden, 1)
+        self.batch_group = None
+
+    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.batch_group is None:
+            return torch.mean(x)
+        from admmnet_tpu_torch.parallel.distributed import all_reduce_sum
+
+        count = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+        total = all_reduce_sum(torch.stack([torch.sum(x), count]), self.batch_group)
+        return total[0] / total[1]
 
     def forward(self, phi, h, G, Z_prev, k: int):
         lam = softplus(self._parameters["lambda"])
@@ -200,7 +217,7 @@ class ZLayer(nn.Module):
         rho_feat = torch.broadcast_to(rho, res_norm.shape)
         if self.ref_stop_gradients:
             rho_feat = rho_feat.detach()
-        res_feat = res_norm / (torch.mean(res_norm) + self.epsilon)
+        res_feat = res_norm / (self.batch_mean(res_norm) + self.epsilon)
         feats = torch.stack([k_feat, rho_feat, res_feat], dim=-1)
         s = torch.relu(self.scale_hidden(feats))
         s = torch.sigmoid(self.scale_out(s))[..., 0]

@@ -1,6 +1,5 @@
 """Training loops for ADMMNet (end to end) and PhiEstADMMNet (phi
-regression).  Counterpart of ``admmnet_tpu/train/trainer.py``, on one
-device (data parallelism is not ported):
+regression).  Counterpart of ``admmnet_tpu/train/trainer.py``:
 
 - AdamW in two groups, the model's ``ADMM_LR_MODULES`` (the trunk) at
   ``admm_lr_scale * lr`` and the rest at ``lr``, decoupled weight decay;
@@ -14,7 +13,18 @@ device (data parallelism is not ported):
 - best-on-validation checkpoints in the JAX package's format, resume,
   ``reset_best``, early stop, the best checkpoint reloaded for the test
   metrics (count-based precision/recall/F1 and the position-matched
-  co-report).
+  co-report);
+- data parallelism with ``mesh=`` (``parallel.data_mesh()`` on each rank
+  of a fleet, one rank per device): every rank draws the same global
+  minibatches, feeds its ``host_local_batch`` slice of each to the model
+  wrapped in ``DistributedDataParallel`` (gradients averaged over the
+  ranks), and the ZLayers take their batch mean over the global batch
+  (``parallel.mesh.bind_batch_mean``), so a step is the single-process
+  step on the global minibatch.  Remainder minibatches are dropped, the
+  losses and metrics are reduced over the ranks (every rank reports the
+  global numbers), and rank 0 alone writes the checkpoint, history and
+  metrics; the ranks meet at a barrier before reloading the best
+  checkpoint from the shared workdir.
 
 A train step runs the model in ``train()`` mode with autograd (the
 chebyshev GLayer launches the training forward K5 and the reversible
@@ -33,6 +43,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from admmnet_tpu_torch.core.config import ModelConfig, TrainConfig
 from admmnet_tpu_torch.core.convert import params_from_jax, params_to_jax
@@ -40,6 +51,7 @@ from admmnet_tpu_torch.data import loader
 from admmnet_tpu_torch.data.generator import iterate_batches
 from admmnet_tpu_torch.models import ADMMNet, PhiEstADMMNet
 from admmnet_tpu_torch.ops.atoms import COMPLEX
+from admmnet_tpu_torch.parallel.mesh import Mesh, barrier, bind_batch_mean
 from admmnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from admmnet_tpu_torch.train.losses import basic_anm_loss, phi_alignment_loss
 from admmnet_tpu_torch.train.metrics_io import MetricsWriter
@@ -135,20 +147,36 @@ def _detection_counts_dev(conf, L_true, thr):
     return tp, fp, fn
 
 
-def _masked_rmse_dev(pred, true, L_true):
-    """Per-sample RMSE over the real targets, averaged over samples with
-    targets."""
+def _masked_rmse_parts(pred, true, L_true):
+    """(sum of the per-sample RMSEs over the real targets, count of samples
+    with targets); ``_masked_rmse_dev`` is their ratio."""
     L_max = pred.shape[-1]
     mask = torch.arange(L_max, device=pred.device)[None, :] < L_true[:, None]
     cnt = torch.clamp_min(L_true, 1)
     rmse = torch.sqrt(torch.sum(mask * (pred - true) ** 2, dim=-1) / cnt)
     sel = L_true > 0
-    return torch.sum(rmse * sel) / torch.clamp_min(torch.sum(sel), 1)
+    return torch.sum(rmse * sel), torch.sum(sel)
+
+
+def _masked_rmse_dev(pred, true, L_true):
+    """Per-sample RMSE over the real targets, averaged over samples with
+    targets."""
+    num, count = _masked_rmse_parts(pred, true, L_true)
+    return num / torch.clamp_min(count, 1)
 
 
 def _matched_rmse_pair_dev(tau_pred, f_pred, tau_true, f_true, L_true):
     """(tau RMSE, f RMSE) under each sample's best slot-to-target
     assignment (the assignment minimizing the masked tau + f MSE)."""
+    tau_num, f_num, count = _matched_rmse_pair_parts(tau_pred, f_pred, tau_true, f_true,
+                                                     L_true)
+    denom = torch.clamp_min(count, 1)
+    return tau_num / denom, f_num / denom
+
+
+def _matched_rmse_pair_parts(tau_pred, f_pred, tau_true, f_true, L_true):
+    """(tau RMSE sum, f RMSE sum, count of samples with targets) of
+    ``_matched_rmse_pair_dev``."""
     L_max = tau_pred.shape[-1]
     perms = torch.tensor(list(itertools.permutations(range(L_max))), device=tau_pred.device)
     mask = (torch.arange(L_max, device=tau_pred.device)[None, :]
@@ -162,8 +190,7 @@ def _matched_rmse_pair_dev(tau_pred, f_pred, tau_true, f_true, L_true):
     tau_rmse = torch.sqrt(torch.gather(tau_mse, 1, best))[:, 0]
     f_rmse = torch.sqrt(torch.gather(f_mse, 1, best))[:, 0]
     sel = L_true > 0
-    denom = torch.clamp_min(torch.sum(sel), 1)
-    return torch.sum(tau_rmse * sel) / denom, torch.sum(f_rmse * sel) / denom
+    return torch.sum(tau_rmse * sel), torch.sum(f_rmse * sel), torch.sum(sel)
 
 
 def _matched_detection_dev(tau_pred, f_pred, conf, tau_true, f_true, L_true, tol, thr):
@@ -211,7 +238,8 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
                 schedule: Callable[[int], float], grad_clip: float = 1.0,
                 assignment: str = "slot", spectral_weight: float = 0.0,
-                conf_threshold: float = 0.5):
+                conf_threshold: float = 0.5, ddp: Optional[torch.nn.Module] = None,
+                group=None):
     """(train_step, eval_step) of ``model``.
 
     ``mode``: "e2e" (ADMMNet + ``basic_anm_loss``) or "phi"
@@ -221,17 +249,24 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
     ``eval_step(batch)`` returns (loss, metrics), the metrics device
     scalars: tau/f RMSE under ``assignment`` and the count-based and
     position-matched detection counts for "e2e", none for "phi".
+
+    Data parallelism: ``ddp`` is ``model`` wrapped in
+    ``DistributedDataParallel`` (the training forward runs through it, so
+    the gradients are averaged over the ranks), ``group`` the fleet's
+    process group: ``eval_step`` then returns the loss and metrics of the
+    global minibatch (the sums all-reduced before the ratios are taken).
     """
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    world = dist.get_world_size(group) if group is not None else 1
 
-    def loss_and_aux(batch):
+    def loss_and_aux(net, batch):
         if mode == "e2e":
-            tau, f, conf, phi = model(batch["y"], batch["b"], batch["sigma"])
+            tau, f, conf, phi = net(batch["y"], batch["b"], batch["sigma"])
             total, _ = basic_anm_loss(tau, f, conf, phi, batch["tau"], batch["f"],
                                       batch["L_true"], assignment=assignment,
                                       spectral_weight=spectral_weight, spec=model.cfg.spec)
             return total, {"tau": tau, "f": f, "conf": conf}
-        phi = model(batch["y"], batch["b"], batch["sigma"])
+        phi = net(batch["y"], batch["b"], batch["sigma"])
         total, _ = phi_alignment_loss(phi, batch["phi"])
         return total, {}
 
@@ -241,7 +276,7 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
         for g in optimizer.param_groups:
             g["lr"] = g["scale"] * lr
         optimizer.zero_grad(set_to_none=True)
-        total, _ = loss_and_aux(batch)
+        total, _ = loss_and_aux(ddp if ddp is not None else model, batch)
         total.backward()
         for p in params:  # optax updates (and decays) parameters the loss misses too
             if p.grad is None:
@@ -250,26 +285,41 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
         optimizer.step()
         return total.detach()
 
+    def global_sums(*vals):
+        """The values summed over the ranks (float64 on the wire, returned
+        in their own dtypes); as given in one process."""
+        if group is None:
+            return vals
+        packed = torch.stack([v.to(torch.float64) for v in vals])
+        dist.all_reduce(packed, group=group)
+        return tuple(p.to(v.dtype) for p, v in zip(packed, vals))
+
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        total, aux = loss_and_aux(batch)
-        metrics = {}
-        if mode == "e2e":
-            if assignment == "perm":
-                t_rm, f_rm = _matched_rmse_pair_dev(aux["tau"], aux["f"], batch["tau"],
-                                                    batch["f"], batch["L_true"])
-            else:
-                t_rm = _masked_rmse_dev(aux["tau"], batch["tau"], batch["L_true"])
-                f_rm = _masked_rmse_dev(aux["f"], batch["f"], batch["L_true"])
-            tp, fp, fn = _detection_counts_dev(aux["conf"], batch["L_true"], conf_threshold)
-            mtp, mfp, mfn, m_tau_sse, m_f_sse = _matched_detection_dev(
-                aux["tau"], aux["f"], aux["conf"], batch["tau"], batch["f"], batch["L_true"],
-                MATCH_TOL, conf_threshold)
-            metrics = {"tau_rmse": t_rm, "f_rmse": f_rm, "tp": tp, "fp": fp, "fn": fn,
-                       "mtp": mtp, "mfp": mfp, "mfn": mfn, "m_tau_sse": m_tau_sse,
-                       "m_f_sse": m_f_sse}
-        return total, metrics
+        total, aux = loss_and_aux(model, batch)
+        if mode != "e2e":
+            (total,) = global_sums(total)
+            return total / world, {}
+        L = batch["L_true"]
+        if assignment == "perm":
+            t_num, f_num, count = _matched_rmse_pair_parts(aux["tau"], aux["f"], batch["tau"],
+                                                           batch["f"], L)
+        else:
+            t_num, count = _masked_rmse_parts(aux["tau"], batch["tau"], L)
+            f_num, _ = _masked_rmse_parts(aux["f"], batch["f"], L)
+        tp, fp, fn = _detection_counts_dev(aux["conf"], L, conf_threshold)
+        mtp, mfp, mfn, m_tau_sse, m_f_sse = _matched_detection_dev(
+            aux["tau"], aux["f"], aux["conf"], batch["tau"], batch["f"], L,
+            MATCH_TOL, conf_threshold)
+        total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn, m_tau_sse, m_f_sse = global_sums(
+            total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn,
+            torch.as_tensor(m_tau_sse), torch.as_tensor(m_f_sse))
+        denom = torch.clamp_min(count, 1)
+        metrics = {"tau_rmse": t_num / denom, "f_rmse": f_num / denom, "tp": tp, "fp": fp,
+                   "fn": fn, "mtp": mtp, "mfp": mfp, "mfn": mfn, "m_tau_sse": m_tau_sse,
+                   "m_f_sse": m_f_sse}
+        return total / world, metrics
 
     return train_step, eval_step
 
@@ -306,14 +356,24 @@ def _graft_params(tree, donor, log_fn):
     return {**tree, **grafted}
 
 
-def _batches(data, batch_size: int, shuffle: bool, seed: int):
+def _batches(data, batch_size: int, shuffle: bool, seed: int, mesh: Optional[Mesh] = None):
     """Minibatch stream, chosen as the JAX trainer chooses it: the native
     prefetch loader (``data/loader.py``) when its library builds, else the
     numpy iterator.  The two shuffle differently; the native one is JAX's
-    native order bit for bit."""
+    native order bit for bit.  Under a mesh the remainder is dropped and
+    each global minibatch is cut to this rank's ``host_local_batch``
+    slice."""
+    drop = mesh is not None
     if loader.native_available():
-        return loader.PrefetchLoader(data, batch_size, shuffle=shuffle, seed=seed)
-    return iterate_batches(data, batch_size, shuffle=shuffle, seed=seed)
+        stream = loader.PrefetchLoader(data, batch_size, shuffle=shuffle, seed=seed,
+                                       drop_remainder=drop)
+    else:
+        stream = iterate_batches(data, batch_size, shuffle=shuffle, seed=seed,
+                                 drop_remainder=drop)
+    if mesh is None:
+        return stream
+    (start, count), = mesh.local_slices(batch_size)
+    return ({k: v[start:start + count] for k, v in batch.items()} for batch in stream)
 
 
 def _prf(tp, fp, fn):
@@ -323,13 +383,15 @@ def _prf(tp, fp, fn):
     return precision, recall, f1
 
 
-def evaluate_split(eval_step, data, batch_size: int, device, mode: str) -> Dict[str, Any]:
+def evaluate_split(eval_step, data, batch_size: int, device, mode: str,
+                   mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Loss and metrics of ``data`` in minibatches of ``batch_size``, in
     order: the JAX trainer's test metrics (the detection counts stay 0 in
-    "phi" mode)."""
+    "phi" mode).  Under a mesh, ``eval_step`` must be the mesh's (its
+    numbers are the global minibatch's)."""
     losses, tau_es, f_es = [], [], []
     sums = dict.fromkeys(("tp", "fp", "fn", "mtp", "mfp", "mfn", "m_tau_sse", "m_f_sse"), 0.0)
-    for batch in _batches(data, batch_size, shuffle=False, seed=0):
+    for batch in _batches(data, batch_size, shuffle=False, seed=0, mesh=mesh):
         total, m = eval_step(batch_to_device(batch, device))
         losses.append(float(total))
         if mode == "e2e":
@@ -370,41 +432,76 @@ def init_model(model_cls, mcfg: ModelConfig, seed: int, device) -> torch.nn.Modu
 
 def train_admmnet(mcfg: ModelConfig, tcfg: TrainConfig, train_data, val_data, test_data=None,
                   workdir="runs/admmnet", log_fn: Callable[[str], None] = print,
-                  init_from: Optional[str] = None, device="cuda") -> TrainResult:
+                  init_from: Optional[str] = None, device="cuda",
+                  mesh: Optional[Mesh] = None) -> TrainResult:
     """Train an ``ADMMNet`` end to end.  ``init_from``: warm-start matching
     submodules (e.g. the trunk of a trained PhiEstADMMNet) from another
     run's checkpoint; ignored when ``workdir`` already has a checkpoint to
-    resume."""
+    resume.  ``mesh``: this rank's ``parallel.data_mesh()`` for data-parallel
+    training (see the module docstring); it sets the device, and the
+    workdir must be shared by the ranks."""
     return _train_loop(ADMMNet, mcfg, tcfg, train_data, val_data, test_data, workdir, log_fn,
-                       "e2e", init_from, device)
+                       "e2e", init_from, device, mesh)
 
 
 def train_phinet(mcfg: ModelConfig, tcfg: TrainConfig, train_data, val_data, test_data=None,
                  workdir="runs/phinet", log_fn: Callable[[str], None] = print,
-                 device="cuda") -> TrainResult:
+                 device="cuda", mesh: Optional[Mesh] = None) -> TrainResult:
     """Train a ``PhiEstADMMNet`` on phi labels (a ``--with-phi`` dataset)."""
     if "phi" not in train_data:
         raise ValueError("phi labels required; generate dataset with with_phi=True")
     return _train_loop(PhiEstADMMNet, mcfg, tcfg, train_data, val_data, test_data, workdir,
-                       log_fn, "phi", None, device)
+                       log_fn, "phi", None, device, mesh)
+
+
+class _NullMetrics:
+    """Metrics sink of the ranks other than 0: writes nothing."""
+
+    def log(self, *a, **k):
+        pass
+
+    def write_history(self, h):
+        pass
+
+    def write_test_result(self, m):
+        pass
+
+
+def _check_mesh(mesh: Mesh, batch_size: int) -> None:
+    if len(mesh.devices) != 1:
+        raise ValueError(
+            f"a mesh of {len(mesh.devices)} devices in one process: the trainer runs one rank "
+            "per device (DistributedDataParallel); launch one process per device "
+            "(torchrun --nproc_per_node N, or COORDINATOR/NPROC/PROC_ID) and pass each "
+            "rank's data_mesh()")
+    if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} does not split into {mesh.size} equal "
+                         "shards")
 
 
 def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir, log_fn, mode,
-                init_from, device) -> TrainResult:
+                init_from, device, mesh=None) -> TrainResult:
+    is_main = True
+    group = None
+    if mesh is not None:
+        _check_mesh(mesh, tcfg.batch_size)
+        device, group, is_main = mesh.devices[0], mesh.group, mesh.is_main
     device = torch.device(device)
     workdir = Path(workdir)
-    workdir.mkdir(parents=True, exist_ok=True)
-    metrics = MetricsWriter(workdir)
+    if is_main:
+        metrics = MetricsWriter(workdir)
+    else:
+        metrics = _NullMetrics()
+
+        def log_fn(msg):  # noqa: F811 -- the other ranks stay quiet
+            del msg
     n_train = train_data["y"].shape[0]
     steps_per_epoch = max(1, n_train // tcfg.batch_size)
     schedule = sgdr_schedule(tcfg.lr, steps_per_epoch, tcfg.epochs, tcfg.sgdr_t0,
                              tcfg.sgdr_t_mult, tcfg.lr_min)
     model = init_model(model_cls, mcfg, tcfg.seed, device)
+    bind_batch_mean(model, mesh)
     optimizer = make_optimizer(model, tcfg)
-    train_step, eval_step = build_steps(
-        model, optimizer, mode, schedule, grad_clip=tcfg.grad_clip,
-        assignment=tcfg.assignment, spectral_weight=tcfg.spectral_weight,
-        conf_threshold=tcfg.conf_threshold)
 
     def load_params(tree):
         model.load_state_dict({k: v.to(device) for k, v in params_from_jax(tree, mcfg).items()})
@@ -428,6 +525,16 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
         log_fn(f"resumed from epoch {start_epoch}"
                + (" (best_val reset)" if best_val == float("inf") else ""))
 
+    ddp = None
+    if group is not None:
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=group, find_unused_parameters=True)
+    train_step, eval_step = build_steps(
+        model, optimizer, mode, schedule, grad_clip=tcfg.grad_clip,
+        assignment=tcfg.assignment, spectral_weight=tcfg.spectral_weight,
+        conf_threshold=tcfg.conf_threshold, ddp=ddp, group=group)
+
     step = start_epoch * steps_per_epoch
     epochs_run = start_epoch
     for epoch in range(start_epoch, tcfg.epochs):
@@ -435,13 +542,19 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
         t_ep = time.time()
         tr_losses = []
         for batch in _batches(train_data, tcfg.batch_size, shuffle=True,
-                              seed=tcfg.seed + epoch):
+                              seed=tcfg.seed + epoch, mesh=mesh):
             tr_losses.append(train_step(batch_to_device(batch, device), step))
             step += 1
-        tr_loss = float(torch.stack(tr_losses).double().mean()) if tr_losses else 0.0
+        tr_loss = 0.0
+        if tr_losses:
+            losses = torch.stack(tr_losses)
+            if group is not None:  # each rank's loss is its shard's mean
+                dist.all_reduce(losses, group=group)
+                losses = losses / dist.get_world_size(group)
+            tr_loss = float(losses.double().mean())
 
         va_losses, tau_es, f_es = [], [], []
-        for batch in _batches(val_data, tcfg.batch_size, shuffle=False, seed=0):
+        for batch in _batches(val_data, tcfg.batch_size, shuffle=False, seed=0, mesh=mesh):
             total, m = eval_step(batch_to_device(batch, device))
             va_losses.append(float(total))
             if mode == "e2e":
@@ -464,12 +577,13 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
         if va_loss < best_val:
             best_val = va_loss
             patience_ct = 0
-            save_checkpoint(
-                workdir,
-                {"params": {"params": params_to_jax(model.state_dict(), mcfg)},
-                 "opt_state": opt_state_to_jax(optimizer, model, mcfg)},
-                {"epoch": epoch, "best_val_loss": best_val, "history": history,
-                 "mode": mode})
+            if is_main:
+                save_checkpoint(
+                    workdir,
+                    {"params": {"params": params_to_jax(model.state_dict(), mcfg)},
+                     "opt_state": opt_state_to_jax(optimizer, model, mcfg)},
+                    {"epoch": epoch, "best_val_loss": best_val, "history": history,
+                     "mode": mode})
         else:
             patience_ct += 1
         metrics.write_history(history)
@@ -477,14 +591,17 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
             log_fn(f"early stop at epoch {epoch + 1}")
             break
 
-    # reload the best checkpoint for the test metrics
+    # reload the best checkpoint for the test metrics; rank 0 wrote it, so
+    # the ranks wait for one another before reading it
+    barrier(mesh)
     restored = restore_checkpoint(workdir)
     if restored is not None:
         load_params(restored[0]["params"]["params"])
 
     test_metrics: Dict[str, Any] = {}
     if test_data is not None:
-        test_metrics = evaluate_split(eval_step, test_data, tcfg.batch_size, device, mode)
+        test_metrics = evaluate_split(eval_step, test_data, tcfg.batch_size, device, mode,
+                                      mesh)
         metrics.write_test_result(test_metrics)
         metrics.log("test", **test_metrics)
 

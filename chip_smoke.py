@@ -27,7 +27,13 @@ and holding each kernel against its plain PyTorch version:
   iterate storage, the ``bench_time`` CLI, and their timings (K1 and K7 on
   the whole-product body of ``polar_cta.cuh``; phase 2 counts their HMMA
   instructions too); then K2's
-  subtraction profile by its ``ablate`` variants (phase 25).
+  subtraction profile by its ``ablate`` variants (phase 25);
+- data parallelism (phase 26): the deploy solve sharded over a world-2
+  gloo fleet with both ranks on this card, and the flagship net-10 trained
+  on it with DistributedDataParallel, against the same solve and run in
+  one process; the same training on a world-1 NCCL fleet, bit for bit the
+  run without a mesh; ``bench_scaling --devices 1``; ``dryrun_multichip(2)``
+  on this card.  The ranks load the kernels built in phase 2.
 
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
@@ -44,7 +50,7 @@ runs only phases 12 and 17's timing of K4 and K5 (``time_cheb``) and
 ``--codegen`` only phase 2's registers, spills and HMMA counts
 (``codegen``), to pair two trees; ``python3 chip_smoke.py --profile-k2``
 only phase 25, the subtraction profile of K2 by its ``ablate`` variants
-(``k2_profile``).
+(``k2_profile``); ``--parallel`` only phase 26 (``parallel_only``).
 """
 
 from __future__ import annotations
@@ -110,6 +116,22 @@ B_PROFILE = 8192
 PROFILE_ITERS = (100, 25)
 PROFILE_REPS = 3
 B_ABLATE_CHECK = 512  # instances of each variant held against its plain version
+# The parallel phase (26): the deploy solve sharded over a world-2 gloo
+# fleet (both ranks on this card), the flagship net-10 (MN = 100) trained
+# data-parallel on it and on a world-1 NCCL fleet, against the same runs
+# in one process
+B_PAR_SOLVE = 8192
+PAR_STEPS = 20  # steps of the DDP runs: 20 epochs of one global batch each
+PAR_BATCH = 256  # global batch (128 a rank at world 2)
+PAR_LOSS_RTOL = 5e-4  # tests/test_mesh_training.py's mesh-vs-single tolerance
+PAR_ZLAYER_TOL = 1e-5  # the ZLayer under 2 ranks vs the whole batch (fp32 sums reordered)
+# DDP's first gradient vs one process's: fp32 sums in another order through
+# 10 unrolled layers (the phase prints a reordering of the batch in one
+# process beside it); a rank left with its half batch's gradient, without
+# the all-reduce, lands percents away
+PAR_GRAD_RTOL = 1e-3
+PAR_SOLVE_RTOL = 1e-6  # the sharded solve when it is not bitwise
+PAR_TIMEOUT = 600  # seconds a fleet may take before it is killed
 # The card's published peaks (H100 SXM at 700 W, NVIDIA's datasheet):
 # fp32 outside the tensor cores, dense bf16 on the tensor cores (products
 # of bf16-valued operands accumulated in fp32), and device memory bandwidth.
@@ -658,6 +680,172 @@ def run_cli(main, argv) -> dict:
     with contextlib.redirect_stdout(buf):
         main(argv)
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def net10_configs():
+    """The flagship net-10 (MN = 100) with the net-3 recipe's other settings:
+    chebyshev GLayer on the Clenshaw kernels, spectrum head, set-matched
+    loss, spectral weight 0.5; PAR_STEPS epochs of one global batch."""
+    from admmnet_tpu_torch.core.config import ModelConfig, ProblemSpec, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return (ModelConfig(spec=ProblemSpec(Nb=10, Nd=10, L_max=3), num_layers=10,
+                        g_mode="chebyshev", cheb_impl="pallas", head="spectrum"),
+            TrainConfig(batch_size=PAR_BATCH, epochs=PAR_STEPS, lr=1e-3, assignment="perm",
+                        spectral_weight=0.5, patience=100, seed=0))
+
+
+def cheb_counts() -> dict:
+    from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+    return {"K4": kc.launches.count, "K5": kc.fwd_launches.count, "K6": kc.bwd_launches.count}
+
+
+def net10_run(mesh, train, val, workdir, device=None) -> dict:
+    """``net10_configs``' training of ``train`` (each epoch's step followed
+    by a validation pass on ``val``, then a test pass on ``val``) through
+    ``train_admmnet``, on ``mesh`` (a rank of a fleet) or on ``device`` in
+    one process.  Returns the per-step losses, the validation losses, the
+    test metrics, the parameters, the wall ms of each epoch after the first
+    (step + validation, between the trainer's epoch logs) and the K4/K5/K6
+    launches of the run."""
+    from admmnet_tpu_torch.train.trainer import train_admmnet
+
+    mcfg, tcfg = net10_configs()
+    before = cheb_counts()
+    stamps = []
+
+    def log_fn(msg):
+        if msg.startswith("epoch"):
+            stamps.append(time.perf_counter())
+
+    r = train_admmnet(mcfg, tcfg, train, val, test_data=val, workdir=workdir, log_fn=log_fn,
+                      device=device, mesh=mesh)
+    return {"train_loss": r.history["train_loss"], "val_loss": r.history["val_loss"],
+            "test": r.test_metrics, "params": {k: v.numpy() for k, v in r.params.items()},
+            "epoch_ms": list(np.diff(stamps) * 1e3),
+            **{k: v - before[k] for k, v in cheb_counts().items()}}
+
+
+def first_gradient(mesh, train, device=None) -> dict:
+    """The gradient of the first training step of ``net10_configs`` from its
+    seed-0 init, as the trainer takes it (``build_steps``: through
+    DistributedDataParallel on a mesh, the ZLayers' mean over the fleet,
+    clipped; the schedule at 0 so the step changes nothing), on this rank's
+    slice of the global batch ``train``; flattened in parameter order."""
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.parallel import bind_batch_mean
+    from admmnet_tpu_torch.train.trainer import (batch_to_device, build_steps, init_model,
+                                                 make_optimizer)
+
+    mcfg, tcfg = net10_configs()
+    dev = mesh.devices[0] if mesh is not None else device
+    model = init_model(ADMMNet, mcfg, tcfg.seed, dev)
+    bind_batch_mean(model, mesh)
+    ddp = None
+    if mesh is not None:
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[dev.index], process_group=mesh.group,
+            find_unused_parameters=True)
+        (s, c), = mesh.local_slices(PAR_BATCH)
+        train = {k: v[s:s + c] for k, v in train.items()}
+    step, _ = build_steps(model, make_optimizer(model, tcfg), "e2e", lambda _: 0.0,
+                          tcfg.grad_clip, tcfg.assignment, tcfg.spectral_weight, ddp=ddp,
+                          group=None if mesh is None else mesh.group)
+    step(batch_to_device(train, dev), 0)
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu().numpy()
+
+
+def zlayer_halves(mesh, case, device=None) -> dict:
+    """net-10's first ZLayer (seed-0 init) on this rank's half of ``case``
+    (the whole batch without a mesh), its batch mean over the fleet:
+    output, gradients of sum(w * output) in the inputs, and in the
+    parameters."""
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.parallel import bind_batch_mean
+    from admmnet_tpu_torch.train.trainer import init_model
+
+    mcfg, tcfg = net10_configs()
+    dev = mesh.devices[0] if mesh is not None else device
+    z = init_model(ADMMNet, mcfg, tcfg.seed, dev).trunk.z_0
+    bind_batch_mean(z, mesh)
+    s, c = mesh.local_slices(len(case["G"]))[0] if mesh is not None else (0, len(case["G"]))
+    args = [torch.from_numpy(case[k][s:s + c]).to(dev).requires_grad_(True)
+            for k in ("phi", "h", "G", "Z")]
+    out = z(*args, 2)
+    w = torch.from_numpy(case["w"][s:s + c]).to(dev)
+    torch.sum(w.real * out.real + w.imag * out.imag).backward()
+    return {"out": out.detach().cpu().numpy(),
+            "inputs": [a.grad.cpu().numpy() for a in args],
+            "params": np.concatenate([p.grad.reshape(-1).cpu().numpy()
+                                      for p in z.parameters() if p.grad is not None])}
+
+
+def zlayer_case(B: int = 16, n: int = 100, seed: int = 0) -> dict:
+    """ZLayer inputs whose scenes differ in scale by up to 10x, so a mean
+    over half of the batch differs from the mean over all of it."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+    scale = np.geomspace(0.1, 1.0, B).astype(np.float32)[:, None, None]
+    X = cplx(B, n + 1, n + 1)
+    herm = ((X + np.conj(np.swapaxes(X, -1, -2))) * scale).astype(np.complex64)
+    return {"phi": 0.3 * cplx(B, n), "h": (0.05 * rng.normal(size=(B, n))).astype(np.float32),
+            "G": herm, "Z": (0.5 * herm).astype(np.complex64), "w": cplx(B, n + 1, n + 1)}
+
+
+def deploy_solve(mesh=None, dev=None):
+    """The deploy point (fused_fast, DETECTION_BUDGET_ITERS iterations, then
+    PRODUCTION_PEAKS) on B_PAR_SOLVE anchor scenes: sharded over ``mesh``
+    and gathered, or on ``dev`` in one process.  Returns phi and the peak
+    lists as numpy (on a rank other than 0: None) and the K2 launches."""
+    from admmnet_tpu_torch.core.config import DETECTION_BUDGET_ITERS, PRODUCTION_PEAKS, ADMMOptions
+    from admmnet_tpu_torch.data.anchor import make_anchor_batch
+    from admmnet_tpu_torch.kernels import fused_admm_fast
+    from admmnet_tpu_torch.parallel import gather_batch, sharded_solver
+    from admmnet_tpu_torch.peaks import find_peaks
+    from admmnet_tpu_torch.solver import admm_solve_fixed
+
+    opts = ADMMOptions(g_update="fused_fast")
+    y, b, s = make_anchor_batch(B_PAR_SOLVE, mode="redemod", seed=0)
+    fused_admm_fast.launches.reset()
+    if mesh is None:
+        phi = admm_solve_fixed(*to_dev(dev, y, b, s), DETECTION_BUDGET_ITERS, 1.0, opts)
+        peaks = find_peaks(phi, 10, 10, PRODUCTION_PEAKS)
+    else:
+        shards = sharded_solver(mesh, DETECTION_BUDGET_ITERS, opts=opts)(y, b, s)
+        peaks = gather_batch([find_peaks(p, 10, 10, PRODUCTION_PEAKS) for p in shards], mesh)
+        phi = gather_batch(shards, mesh)
+    launches = fused_admm_fast.launches.count
+    if mesh is not None and not mesh.is_main:
+        return None, None, launches
+    return (phi.cpu().numpy(), {k: v.cpu().numpy() for k, v in peaks._asdict().items()},
+            launches)
+
+
+def parallel_rank(mesh, train, val, workdir, case) -> dict:
+    """Phase 26 (a) and (b) on one rank of the world-2 gloo fleet."""
+    start = cheb_counts()
+    phi, peaks, k2 = deploy_solve(mesh)
+    z = zlayer_halves(mesh, case)
+    grad = first_gradient(mesh, train)
+    out = net10_run(mesh, train, val, workdir)
+    del out["params"]
+    return {**out, "phi": phi, "peaks": peaks, "K2": k2, "zlayer": z, "grad": grad,
+            "total": {k: v - start[k] for k, v in cheb_counts().items()}}
+
+
+def bitwise_or_rel(a: np.ndarray, b: np.ndarray):
+    """(equal bit for bit, largest difference relative to b's largest
+    magnitude)."""
+    if np.array_equal(a, b):
+        return True, 0.0
+    finite = np.isfinite(b)
+    diff = np.abs(np.where(a == b, 0.0, a.astype(np.float64) - b))
+    return False, float(np.max(diff) / max(float(np.max(np.abs(b[finite]))), 1e-30))
 
 
 class Smoke:
@@ -1295,6 +1483,7 @@ class Smoke:
         res = json.loads((work / "test_result.json").read_text())
         gen = DatasetGenerator(data_dir=data)
         self.train_split = gen.load_split("train")
+        self.val_split = gen.load_split("val")
         test = gen.load_split("test")
         n_steps = len(hist["train_loss"]) * -(-len(self.train_split["y"]) // 256)
         self.train_steps = n_steps
@@ -1681,6 +1870,171 @@ class Smoke:
             f"({by}; {bms / ms:.1%} of it), with fp32 SIMT closing {fp32_ms:.3f} ms {tag}")
 
 
+    # 26 ------------------------------------------------------------------
+    def parallel(self) -> dict:
+        """Data parallelism on the card: (a) the deploy solve sharded over a
+        world-2 gloo fleet (both ranks on this card: NCCL refuses two ranks
+        on one device) against the same solve in this process; (b) on the
+        same fleet, net-10 trained with DistributedDataParallel (global
+        batch 256, 128 a rank, the ZLayer's mean over the global batch)
+        against the run in this process; (c) the same run on a world-1
+        NCCL fleet, bit for bit the run without a mesh; (d) the scaling CLI
+        on this card; (e) the multi-rank dry run on this card.  Returns the
+        phase's kernel launches, over this process and every rank."""
+        from admmnet_tpu_torch.cli import bench_scaling
+        from admmnet_tpu_torch.graft_entry import dryrun_multichip
+        from admmnet_tpu_torch.kernels import polar
+        from admmnet_tpu_torch.parallel import spawn_ranks
+
+        tag = f"[{self.card}]"
+        t_phase = time.time()
+        start = cheb_counts()
+        log("[26 parallel] world-2 fleets below are two gloo ranks time-sharing this one card: "
+            "their times are not scaling numbers")
+        n = PAR_BATCH
+        train = {k: v[:n] for k, v in self.train_split.items()}
+        val = {k: v[:n] for k, v in self.val_split.items()}
+
+        # (a) the sharded deploy solve
+        phi1, peaks1, k2_single = deploy_solve(dev=self.dev)
+        case = zlayer_case()
+        work = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        t0 = time.time()
+        ranks = spawn_ranks(parallel_rank, 2, backend="gloo", device="cuda:0",
+                            args=(train, val, str(Path(work.name) / "ddp"), case),
+                            timeout=PAR_TIMEOUT)
+        t_fleet = time.time() - t0
+        r0 = ranks[0]
+        same, rel = bitwise_or_rel(r0["phi"], phi1)
+        log(f"[26a sharded deploy] B={B_PAR_SOLVE} fused_fast x 10 + PRODUCTION_PEAKS on 2 gloo "
+            f"ranks (cuda:0): K2 launches per rank {[r['K2'] for r in ranks]} (each must be "
+            f"> 0); gathered phi " + ("bitwise equal to the single-process solve" if same else
+                                      f"differs: max |diff| / max |phi| = {rel:.3e}"))
+        check(all(r["K2"] > 0 for r in ranks), "a rank of the sharded solve never launched K2")
+        worst = rel
+        for k, v in peaks1.items():
+            same_k, rel_k = bitwise_or_rel(r0["peaks"][k].astype(np.float64), v.astype(np.float64))
+            log(f"[26a sharded deploy] peaks.{k}: "
+                + ("bitwise equal" if same_k else f"max rel diff {rel_k:.3e}"))
+            check(same_k or k != "valid", "the sharded peak lists' valid flags differ")
+            worst = max(worst, rel_k)
+        if worst:
+            log(f"[26a sharded deploy] not bitwise: the kernel is per instance, so a difference "
+                f"comes from the batch size the peak search's batched products see (4096 vs "
+                f"8192 rows); gate max rel {worst:.3e} <= {PAR_SOLVE_RTOL}")
+        check(worst <= PAR_SOLVE_RTOL, "the sharded deploy solve differs from one process's")
+
+        # (b) the ZLayer's global mean and DDP's first step, each rank against
+        # one process from the same state, then 20 steps of the trainer
+        zref = zlayer_halves(None, case, self.dev)
+        half = len(case["G"]) // 2
+        zerr = 0.0
+        for i, r in enumerate(ranks):
+            sl = slice(i * half, (i + 1) * half)
+            for got, want in [(r["zlayer"]["out"], zref["out"][sl])] + [
+                    (g, w[sl]) for g, w in zip(r["zlayer"]["inputs"], zref["inputs"])]:
+                zerr = max(zerr, float(np.max(np.abs(got - want) / (1.0 + np.abs(want)))))
+        zsum = ranks[0]["zlayer"]["params"] + ranks[1]["zlayer"]["params"]
+        zerr = max(zerr, float(np.max(np.abs(zsum - zref["params"])
+                                      / (1.0 + np.abs(zref["params"])))))
+        log(f"[26b ZLayer] net-10's z_0 on 2 gloo ranks, each on half of {len(case['G'])} "
+            f"scenes of 10x different scales: outputs and input gradients per half, parameter "
+            f"gradients summed over the ranks, vs the whole batch in one process: max "
+            f"|diff| / (1 + |ref|) {zerr:.3e} (<= {PAR_ZLAYER_TOL})")
+        check(zerr <= PAR_ZLAYER_TOL, "the ZLayer's mean is not the global batch's under 2 ranks")
+        perm = np.random.default_rng(1).permutation(n)
+        reordered = {k: v[perm] for k, v in train.items()}
+        gref = first_gradient(None, train, self.dev)
+        gerr = [float(np.linalg.norm(r["grad"] - gref) / np.linalg.norm(gref)) for r in ranks]
+        gctl = float(np.linalg.norm(first_gradient(None, reordered, self.dev) - gref)
+                     / np.linalg.norm(gref))
+        log(f"[26b DDP first step] net-10 from its seed-0 init, global batch {n}: each rank's "
+            f"clipped gradient (averaged by DDP) vs one process's, ||diff|| / ||g|| "
+            f"{' '.join(f'{e:.3e}' for e in gerr)} (<= {PAR_GRAD_RTOL}); one process on the "
+            f"batch reordered {gctl:.3e}")
+        check(max(gerr) <= PAR_GRAD_RTOL, "DDP's first step is not the single-process step")
+
+        single = net10_run(None, train, val, str(Path(work.name) / "single"), self.dev)
+        control = net10_run(None, reordered, {k: v[perm] for k, v in val.items()},
+                            str(Path(work.name) / "control"), self.dev)
+
+        def dev_from_single(run, key):
+            return np.abs(np.array(run[key]) / np.array(single[key]) - 1)
+
+        for key in ("train_loss", "val_loss"):
+            d, c = dev_from_single(r0, key), dev_from_single(control, key)
+            log(f"[26b DDP net-10] {key} rel diff from one process, per step: DDP "
+                f"{' '.join(f'{x:.1e}' for x in d)}; one process on the batch reordered "
+                f"{' '.join(f'{x:.1e}' for x in c)} (max {d.max():.3e} vs {c.max():.3e})")
+        dl0 = float(dev_from_single(r0, "train_loss")[0])
+        dv0 = float(dev_from_single(r0, "val_loss")[0])
+        log(f"[26b DDP net-10] {PAR_STEPS} steps of global batch {n} ({n // 2} a rank): step 1 "
+            f"(the same initial state) train loss rel diff {dl0:.3e}, validation after it "
+            f"{dv0:.3e} (each <= {PAR_LOSS_RTOL}); later steps are reported, not gated: a "
+            f"reordering of the same batch in one process moves them as far (above); final "
+            f"validation {r0['val_loss'][-1]:.6f} vs {single['val_loss'][-1]:.6f}, matched test "
+            f"F1 {r0['test']['matched_f1']:.4f} vs {single['test']['matched_f1']:.4f}")
+        check(dl0 <= PAR_LOSS_RTOL and dv0 <= PAR_LOSS_RTOL,
+              "DDP's first step left the single-process run")
+        check(ranks[0]["train_loss"] == ranks[1]["train_loss"],
+              "the ranks report different global losses")
+        glayers = 9
+        for i, r in enumerate(ranks):
+            log(f"[26b DDP net-10] rank {i} launches in the run: K5 {r['K5']}, K6 {r['K6']} "
+                f"(each must be {glayers} x {PAR_STEPS} = {glayers * PAR_STEPS}), K4 {r['K4']} "
+                f"in the validation and test passes (must be > 0)")
+            check(r["K5"] == r["K6"] == glayers * PAR_STEPS and r["K4"] > 0,
+                  "a rank did not launch K5/K6 once per GLayer and step")
+        kinds = [json.loads(ln)["kind"] for ln in
+                 (Path(work.name) / "ddp" / "metrics.jsonl").read_text().splitlines()]
+        log(f"[26b DDP net-10] workdir: metrics.jsonl holds {kinds.count('epoch')} epoch and "
+            f"{kinds.count('test')} test records (one writer: {PAR_STEPS} and 1)")
+        check(kinds.count("epoch") == PAR_STEPS and kinds.count("test") == 1,
+              "more than one rank wrote the workdir")
+
+        # (c) NCCL at world 1: bit for bit the run without a mesh
+        (nccl,) = spawn_ranks(net10_run, 1, backend="nccl", device="cuda",
+                              args=(train, val, str(Path(work.name) / "nccl")),
+                              timeout=PAR_TIMEOUT)
+        same_loss = nccl["train_loss"] == single["train_loss"] and \
+            nccl["val_loss"] == single["val_loss"]
+        same_params = all(np.array_equal(nccl["params"][k], v) for k, v in single["params"].items())
+        log(f"[26c NCCL world 1] {PAR_STEPS} steps: losses "
+            f"{'bitwise equal' if same_loss else 'DIFFER'}, parameters "
+            f"{'bitwise equal' if same_params else 'DIFFER'} to the run without a mesh; ms per "
+            f"step + validation pass (median of epochs 2-{PAR_STEPS}): no mesh "
+            f"{np.median(single['epoch_ms']):.2f}, NCCL world-1 DDP "
+            f"{np.median(nccl['epoch_ms']):.2f}, gloo world 2 (time-shared) "
+            f"{np.median(r0['epoch_ms']):.2f} {tag}")
+        check(same_loss and same_params, "the world-1 NCCL run is not the run without a mesh")
+        work.cleanup()
+
+        # (d) the scaling CLI on this card
+        polar.launches.reset()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_scaling.main(["--devices", "1", "--json"])
+        (row,) = json.loads(buf.getvalue().strip().splitlines()[-1])
+        k1 = polar.launches.count
+        log(f"[26d bench_scaling] --devices 1 (polar, 512 x 20 iterations): "
+            f"{row['throughput_iters_per_s']:.0f} inst-iter/s, efficiency {row['efficiency']}; "
+            f"K1 launches {k1} (must be > 0) {tag}")
+        check(k1 > 0 and row["throughput_iters_per_s"] > 0, "bench_scaling did not run K1")
+
+        # (e) the multi-rank dry run on this card
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            dry = dryrun_multichip(2, device="cuda:0", backend="gloo")
+        log(f"[26e dryrun_multichip] 2 gloo ranks on cuda:0: (train loss, sum |phi|) per rank "
+            f"{dry} in {time.time() - t0:.1f} s")
+        check(all(np.isfinite(v) for r in dry for v in r), "the dry run is not finite")
+        log(f"[26 parallel] {time.time() - t_phase:.1f} s (the world-2 fleet {t_fleet:.1f} s)")
+        totals = {k: v - start[k] for k, v in cheb_counts().items()}  # this process's
+        return {"K1": k1, "K2": k2_single + sum(r["K2"] for r in ranks),
+                **{k: totals[k] + nccl[k] + sum(r["total"][k] for r in ranks)
+                   for k in ("K4", "K5", "K6")}}
+
+
 def main() -> int:
     from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, polar
 
@@ -1753,6 +2107,8 @@ def main() -> int:
     sm.bench_time_cli()
     sm.variant_timings()
     k2_profile(sm.dev, f"[{sm.card}]")
+    for k, v in sm.parallel().items():
+        counts[k] += v
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -1882,6 +2238,29 @@ def time_k6() -> int:
     return 0
 
 
+def parallel_only() -> int:
+    """``--parallel``: phase 26 alone, on the net-3 recipe's dataset made
+    afresh by ``generate_dataset`` as phase 16 makes it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the parallel phase needs one GPU")
+    from admmnet_tpu_torch.cli import generate_dataset
+    from admmnet_tpu_torch.data.generator import DatasetGenerator
+    from admmnet_tpu_torch.kernels import _build
+
+    _build.lib()
+    sm = Smoke()
+    sm.device()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate_dataset.main(["--out", tmp, "--fixed-snr", "20", "--total", "10000",
+                                   "--seed", "13", "--device", "cuda"])
+        gen = DatasetGenerator(data_dir=tmp)
+        sm.train_split, sm.val_split = gen.load_split("train"), gen.load_split("val")
+    log(f"[parallel] {ROOT}: launches {sm.parallel()}")
+    return 0
+
+
 def profile_k2() -> int:
     """``--profile-k2``: phase 25 alone (``k2_profile``), to compare two trees
     on one card as ``--time-k6`` does."""
@@ -1912,7 +2291,10 @@ if __name__ == "__main__":
                       help="time K1 and K7 alone (see time_polar) and run nothing else")
     mode.add_argument("--profile-k2", action="store_true",
                       help="run K2's subtraction profile alone (phase 25, see k2_profile)")
+    mode.add_argument("--parallel", action="store_true",
+                      help="run the parallel phase alone (phase 26, see parallel_only)")
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
              else time_polar() if args.time_polar else codegen() if args.codegen
-             else profile_k2() if args.profile_k2 else main())
+             else profile_k2() if args.profile_k2 else parallel_only() if args.parallel
+             else main())

@@ -403,3 +403,55 @@ def test_cheb_filter_fn_backward_on_cuda(cuda):
         grads.append((herm, cg.grad))
     assert _rel(grads[0][0], grads[1][0]) < 1e-3
     assert _rel(grads[0][1], grads[1][1]) < 1e-3
+
+
+# ---- data parallelism on the card ----------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sharded_solve_gloo_fleet_on_one_card(cuda):
+    """Two gloo ranks, both on cuda:0 (NCCL refuses two ranks on one
+    device), solve B = 64 anchor instances sharded with the fused solve
+    (K2): the gathered phi equals the single process's bit for bit (the
+    kernel is per instance), and each rank launched K2."""
+    import torch_rank_fns
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.parallel import spawn_ranks
+    from admmnet_tpu_torch.solver import admm_solve_fixed
+
+    _build.lib()  # built once here; the ranks load it
+    y, b, s = make_anchor_batch(64, mode="redemod", seed=0)
+    opts = ADMMOptions(g_update="fused_fast")
+    ranks = spawn_ranks(torch_rank_fns.sharded_solve, 2, backend="gloo", device="cuda:0",
+                        args=(y, b, s, 10, opts), timeout=300)
+    single = admm_solve_fixed(*(torch.from_numpy(a).to(cuda) for a in (y, b, s)), 10,
+                              opts=opts).cpu().numpy()
+    for phi, launches in ranks:
+        assert launches > 0
+        np.testing.assert_array_equal(phi, single)
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_trainer_equals_no_mesh(cuda, tmp_path):
+    """A one-rank NCCL fleet (DDP, the ZLayer bound to the fleet) trains
+    bit for bit as the trainer without a mesh."""
+    import torch_rank_fns
+    from admmnet_tpu_torch.core.config import DataConfig, ModelConfig, ProblemSpec, TrainConfig
+    from admmnet_tpu_torch.data.generator import generate_batch
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.parallel import spawn_ranks
+    from admmnet_tpu_torch.train.trainer import train_admmnet
+
+    _build.lib()
+    spec = ProblemSpec(Nb=4, Nd=4, L_max=2)
+    data = generate_batch(DataConfig(spec=spec), 32, torch.Generator().manual_seed(0),
+                          device="cpu")
+    (losses, params), = spawn_ranks(torch_rank_fns.train_steps, 1, backend="nccl",
+                                    device="cuda", args=(data, 3), timeout=300)
+    ref = train_admmnet(ModelConfig(spec=spec, num_layers=2, hidden_dim=32, g_mode="chebyshev",
+                                    cheb_impl="pallas", head="spectrum"),
+                        TrainConfig(batch_size=32, epochs=3, assignment="perm"), data, data,
+                        workdir=tmp_path, log_fn=lambda *_: None, device=cuda)
+    assert losses == ref.history["train_loss"]
+    for k, v in ref.params.items():
+        np.testing.assert_array_equal(params[k], v.numpy())
