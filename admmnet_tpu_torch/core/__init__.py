@@ -1,3 +1,17 @@
-from admmnet_tpu_torch.core.config import ADMMOptions, ModelConfig, PeakSearchConfig, ProblemSpec
+from admmnet_tpu_torch.core.config import (
+    ADMMOptions,
+    DataConfig,
+    ModelConfig,
+    PeakSearchConfig,
+    ProblemSpec,
+    TrainConfig,
+)
 
-__all__ = ["ADMMOptions", "ModelConfig", "PeakSearchConfig", "ProblemSpec"]
+__all__ = [
+    "ADMMOptions",
+    "DataConfig",
+    "ModelConfig",
+    "PeakSearchConfig",
+    "ProblemSpec",
+    "TrainConfig",
+]

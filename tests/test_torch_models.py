@@ -235,10 +235,14 @@ def test_peak_heads(head):
 # ---- whole nets on the committed checkpoints ----------------------------------
 
 
-@pytest.mark.parametrize("run, B", [("train_net3_r05", 16), ("admmnet10", 4), ("phi10", 4)])
+@pytest.mark.parametrize("run, B", [("train_net3_r05", 16), ("admmnet10", 4), ("phi10", 4),
+                                    ("spec50k_sense", 2), ("spec50k_warm", 2)])
 def test_net_matches_jax(run, B):
     """net-3 (pallas Clenshaw, spectrum head), net-10 (eigh GLayer,
-    attention head) and the phi net, each on the first B random scenes."""
+    attention head), the phi net, and net-10 with the chebyshev GLayer and
+    the spectrum head, learned sensing (spec50k_sense) and warm-started
+    from the phi net's trunk (spec50k_warm), each on the first B random
+    scenes."""
     d, jc = _jax_config(run)
     state = flax.serialization.msgpack_restore(
         (ROOT / "runs" / run / "best_model.msgpack").read_bytes())
