@@ -136,8 +136,9 @@ class PeakSearchConfig:
     step_r = reduce_factor * step_{r-1} around the current estimate.
 
     ``refine_precision`` ("highest" | "default") names the matmul precision
-    of the refine einsums in the JAX package.  The port evaluates both in
-    float32.
+    of the refine products, as in the JAX package: "default" is one-pass
+    (operands rounded to bf16) on the card and float32 on the CPU
+    (``peaks/search.py``).
     """
 
     delay_min: float = 0.0

@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(C::NT, 1)
       }
     bd.sync_all();
 
-    bd.template sign_schedule<false>(sched, sched.n);
+    bd.template sign_schedule<false, false>(sched, sched.n);  // all hi
 
     // M again into W (the same fp32 operations), then A = herm(X M)
 #pragma unroll

@@ -21,8 +21,9 @@
 // weights; phi_r, phi_i: (B, n), written.  coeffs: host array of nsteps
 // (a, b, c) triples.  lists selects K3's layout, which takes none of
 // fold_diag, warm_root, all_hi, three_pass.  ablate: AB_NONE or a profiling
-// variant of the unfolded lean layout without three_pass.  Returns the
-// launch's cudaError_t.
+// variant of the unfolded lean layout without three_pass.  The products
+// that are not hi run one-pass (fused_solve_tc.cuh).  Returns the launch's
+// cudaError_t.
 extern "C" int fused_admm_fast_launch(const float* yob_r, const float* yob_i, const float* w,
                                       const float* A, float* phi_r, float* phi_i, int B, int n,
                                       int P, int num_iters, float rho, float lam_inv_sq,

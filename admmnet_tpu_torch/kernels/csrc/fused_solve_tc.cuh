@@ -10,7 +10,8 @@
 //   M    = B - Z/rho
 //   X    = M / ||M||_F, then the sign schedule (kernels/polar.py's rule: a
 //          step is hi iff all_hi or s >= nsteps - hi_steps, its products split
-//          iff three_pass, the iterate re-projected iff not hi or three_pass)
+//          iff three_pass, one-pass iff it is not hi (without three_pass),
+//          the iterate re-projected iff not hi or three_pass)
 //   A    = herm(X M);  G' = (M + A)/2
 //   Z'   = rho (G' - M)                lean;  lists: Z + rho (G' - B)
 // With fold_diag (FOLDED), phi and t read rho A[n, :] and diag(A) of the
@@ -27,7 +28,10 @@
 //
 // Bound on this card: arithmetic.  An iteration is 3 complex products per
 // schedule step and 1 closing one, 9 nsteps + 3 real P^3 products (sched2:
-// 21), against a read of the (B, n) rows and a write of phi.
+// 21), against a read of the (B, n) rows and a write of phi.  At the
+// production point (sched2, no hi step, final_hi off) all 21 are one-pass
+// TF32 products (495 TFLOP/s dense); fused_exact's are fp32-faithful
+// (3xTF32, three TF32 products each).
 //
 // Design: one cluster of NC = P / 16 CTAs per instance (tc_product.cuh's
 // layout).  CTA q holds rows [16 q, 16 q + 16) of the working planes in
@@ -35,11 +39,20 @@
 // a re-projection) and Y (the schedule polynomial), real and imaginary, 8
 // band planes.  Z (and, for ablate "assemble", G) lives in registers in the
 // mma accumulator layout: it is only used elementwise.  Products run in
-// 3xTF32 (fp32-faithful) or, for three_pass hi products, in the split-bf16
-// contract (4 mma per real product; the squarings in the 4-multiplication
-// form, which drops the same terms as kernels/polar.py's herm_square with
-// split); every right operand is read band by band from its owner over distributed
-// shared memory.  Nothing but the rows in and phi out touches device memory.
+// tc_product.cuh's tiers, selected per product by a branch uniform over
+// the cluster (so the tier multiplies no instantiation): a hi product in
+// 3xTF32 (fp32-faithful) or, with three_pass, in the split-bf16 contract
+// (4 mma per real product); a product of a step that is not hi, and the
+// closing product when final_hi is off, one-pass (one TF32 m16n8k8 mma per
+// real product and 8-deep step, operands rounded to tf32; tc_product.cuh
+// says why tf32 and not the MXU's bf16).  A three_pass launch has no low
+// product: the wrapper runs it only with every step and the closing
+// product hi (fused_exact).
+// Split and one-pass squarings take the 4-multiplication form, which
+// rounds and drops what kernels/polar.py's herm_square does (4 products a
+// square where the plain version has 3).  Every right operand is read band by
+// band from its owner over distributed shared memory.  Nothing but the
+// rows in and phi out touches device memory.
 //
 // Shared memory per CTA: 8 planes of 16 (P + 4) floats, the staging double
 // buffer of 4 x 16 (P + 8) floats, 10 rows of 128 floats and 80 floats of
@@ -158,17 +171,28 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1)
   auto transposed = [&](const float* plane, int r, int c) {
     return *cluster.map_shared_rank(plane + (c % BAND) * SA + r, c / BAND);
   };
-  // one complex product, acc = L R (L: this band; R: every band)
-  auto product = [&](bool split, bool kara, float* Rr, float* Ri, const float* Lr,
+  // one complex product, acc = L R (L: this band; R: every band): split
+  // (three_pass) or one-pass (never both), Karatsuba's form or (kara =
+  // false) the 4-multiplication form, else 3xTF32
+  using tcp::Prec;
+  auto product = [&](bool split, bool one, bool kara, float* Rr, float* Ri, const float* Lr,
                      const float* Li, CAcc (&acc)[1][NPW]) {
     const float* const lr[1] = {Lr};
     const float* const li[1] = {Li};
     if constexpr (THREE_PASS) {
       if (split) {
         if (kara)
-          tcp::band_product<P, 1, true, true>(cluster, Rr, Ri, lr, li, stage, m, acc);
+          tcp::band_product<P, 1, Prec::SPLIT, true>(cluster, Rr, Ri, lr, li, stage, m, acc);
         else
-          tcp::band_product<P, 1, true, false>(cluster, Rr, Ri, lr, li, stage, m, acc);
+          tcp::band_product<P, 1, Prec::SPLIT, false>(cluster, Rr, Ri, lr, li, stage, m, acc);
+        return;
+      }
+    } else {
+      if (one) {
+        if (kara)
+          tcp::band_product<P, 1, Prec::ONE_PASS, true>(cluster, Rr, Ri, lr, li, stage, m, acc);
+        else
+          tcp::band_product<P, 1, Prec::ONE_PASS, false>(cluster, Rr, Ri, lr, li, stage, m, acc);
         return;
       }
     }
@@ -333,22 +357,24 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1)
     for (int s = 0; s < sched.n; ++s) {
       const bool hi = prm.all_hi || s >= sched.n - prm.hi_steps;
       const bool split = THREE_PASS && hi;
+      const bool one = !THREE_PASS && !hi;
+      const bool four = split || one;  // the squares' 4-multiplication form
       const bool reproject = !hi || THREE_PASS;
       const float a = sched.a[s], b = sched.b[s], c = sched.c[s];
       CAcc acc[1][NPW];
-      // X^2 (split: the 4-multiplication form, herm_square's terms)
-      product(split, false, Xr, Xi, Xr, Xi, acc);
+      // X^2 (split, one-pass: the 4-multiplication form, herm_square's terms)
+      product(split, one, !four, Xr, Xi, Xr, Xi, acc);
 #pragma unroll
       for (int j = 0; j < NPW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int idx = row_of(e) * SA + col_of(j, e);
           Ur[idx] = tcp::acc_re(acc[0][j], e);
-          Ui[idx] = im_of(split, acc[0][j], e);
+          Ui[idx] = im_of(four, acc[0][j], e);
         }
       cluster.sync();  // X^2 visible
       // X^4, then Y = a I + b X^2 + c X^4
-      product(split, false, Ur, Ui, Ur, Ui, acc);
+      product(split, one, !four, Ur, Ui, Ur, Ui, acc);
 #pragma unroll
       for (int j = 0; j < NPW; ++j)
 #pragma unroll
@@ -356,11 +382,11 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1)
           const int lr = row_of(e), cc = col_of(j, e), idx = lr * SA + cc;
           const float eye = row0 + lr == cc ? a : 0.f;
           Yr[idx] = (eye + b * Ur[idx]) + c * tcp::acc_re(acc[0][j], e);
-          Yi[idx] = b * Ui[idx] + c * im_of(split, acc[0][j], e);
+          Yi[idx] = b * Ui[idx] + c * im_of(four, acc[0][j], e);
         }
       cluster.sync();  // Y visible; every read of X^2 done
       // X Y (Karatsuba)
-      product(split, true, Yr, Yi, Xr, Xi, acc);
+      product(split, one, true, Yr, Yi, Xr, Xi, acc);
       if (reproject) {
 #pragma unroll
         for (int j = 0; j < NPW; ++j)
@@ -399,7 +425,8 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1)
     float ar[NPW][4], ai[NPW][4];
     if constexpr (ABLATE != AB_FINALS) {
       CAcc acc[1][NPW];
-      product(THREE_PASS && prm.final_hi != 0, true, Mr, Mi, Xr, Xi, acc);
+      product(THREE_PASS && prm.final_hi != 0, !THREE_PASS && prm.final_hi == 0, true, Mr, Mi,
+              Xr, Xi, acc);
 #pragma unroll
       for (int j = 0; j < NPW; ++j)
 #pragma unroll

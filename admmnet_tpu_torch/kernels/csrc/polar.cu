@@ -13,9 +13,11 @@
 // Bound on this card: arithmetic.  A projection is 9 real P^3 products per
 // schedule step plus 3 closing ones at the logical side m (101 for the
 // lifted 101 x 101 matrix: 7 steps -> 66 products, 0.14 GFLOP useful),
-// against one read of M and one write of P.  In 3xTF32 on the tensor cores
-// (three TF32 products per useful one, 495 TFLOP/s) that is 1.68 ms at
-// B = 2048.
+// against one read of M and one write of P.  The accurate mode's are all
+// fp32 products, in 3xTF32 on the tensor cores (three TF32 products per
+// useful one, 495 TFLOP/s): 1.68 ms at B = 2048.  The fast mode's 54 low
+// products are one-pass bf16 products (989 TFLOP/s dense), its 3 closing
+// ones 3xTF32: 0.31 ms at B = 2048.
 //
 // Design: the body of polar_cta.cuh.  At P = 112 (m <= 112) one CTA of 7
 // warps per matrix holds the four working planes X and W in shared memory
@@ -23,8 +25,8 @@
 // CTAs of 16 warps holds 64 rows each plus a stage for the peer's rows of a
 // right operand (208896 B + 256 B each).  Every product is one whole
 // product per CTA (or pair): 3xTF32 mma.sync m16n8k8 on the tensor cores
-// for the fp32 steps and the closing product; IEEE fp32 FMAs in k order
-// for bf16_store's low steps (polar_cta.cuh says why).  M is not held on
+// for the hi steps and the closing product, one-pass bf16 mma.sync
+// m16n8k16 for the low steps (kernels/polar.py's precision rule).  M is not held on
 // chip: it is read from device memory for ||M||_F and X_0 and into W for
 // the closing product, which also supplies P = (M + A) / 2.  There is no
 // global scratch.
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(C::NT, 1)
   }
   bd.sync_all();
 
-  bd.template sign_schedule<BF16_STORE>(sched, hi_steps);
+  bd.template sign_schedule<BF16_STORE, true>(sched, hi_steps);
 
   // M into W, then A = herm(X M)
   for (int e = tid; e < C::ROWS * Q4; e += C::NT) {

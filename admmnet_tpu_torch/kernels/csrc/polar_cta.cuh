@@ -30,23 +30,29 @@
 // tiles, 16 warps (8 warps of 8 tiles ran slower).  Every fragment a warp
 // loads feeds NTW tiles (left) or one tile (right).
 //
-// Products.  fp32 products run in 3xTF32 (tc_product.cuh's split: x = hi +
-// lo, x y ~ lo hi + hi lo + hi hi), each 8-deep step's sum fresh and folded
-// into the running sum in fp32.  A square of a Hermitian X takes three real
-// products into two accumulators, X2r = Xr Xr - Xi Xi (the negated Xi
-// fragment) and T = Xr Xi, with X2i = T - T^T; a general complex product
-// takes the 4-multiplication form, Cr = Lr Rr - Li Ri and Ci = Lr Ri + Li Rr
-// (two accumulators: Karatsuba's third would not fit the registers beside
-// a whole product's output).  With bf16 storage (BF), the low steps'
-// products take the plain version's own arithmetic instead: IEEE fp32 FMAs
-// summed in k order from 0, each of the contract's terms (t1 = Lr Rr, t2 =
-// Li Ri and T = Lr Ri, or Karatsuba's t3 = (Lr + Li)(Rr + Ri) on
-// bf16-rounded sums) in its own accumulator and rounded once, as
-// psd_project_polar_plain's bf16_step rounds them.  Their operands are
-// bf16-valued, so every product is exact, but their sums are not: summed
-// in another order (the tensor cores' bf16 mma was tried) a sum lands on
-// the other side of a bf16 rounding often enough that the flips carry
-// through the later low steps of nearly every matrix.
+// Products, in the JAX package's tiers (kernels/polar.py).  fp32 products
+// -- a hi step's and the closing |M| product -- run in 3xTF32
+// (tc_product.cuh's split: x = hi + lo, x y ~ lo hi + hi lo + hi hi), each
+// 8-deep step's sum fresh and folded into the running sum in fp32.  A
+// square of a Hermitian X takes three real products into two
+// accumulators, X2r = Xr Xr - Xi Xi (the negated Xi fragment) and T = Xr
+// Xi, with X2i = T - T^T; a general complex product takes the
+// 4-multiplication form, Cr = Lr Rr - Li Ri and Ci = Lr Ri + Li Rr (two
+// accumulators: Karatsuba's third would not fit the registers beside a
+// whole product's output and the 3xTF32 fragments).  A low step's products
+// run one-pass (product16): bf16 mma.sync m16n8k16, each operand rounded to
+// nearest-even bf16 (cvt.rn.bf16x2.f32), the exact products summed in the
+// fp32 accumulator over the whole K, each of the plain version's terms in
+// its own accumulator -- t1 = Lr Rr, t2 = Li Ri and T = Lr Ri, or Karatsuba's t3 =
+// (Lr + Li)(Rr + Ri) with the operand sums formed in fp32 and rounded once
+// -- so that the step subtracts and rounds them where the plain version
+// does (its fp32 X2r = t1 - t2; with bf16 storage bf(bf(t1) - bf(t2))).
+// Three accumulators fit where 3xTF32's two did: a one-pass fragment is a
+// packed bf16 pair, no split.  With bf16 storage (BF) the operands are
+// bf16-valued already, so every term is exact and the kernel differs from
+// the plain version only in the order of the fp32 sums; where that flips
+// a bf16 rounding the later low steps carry it (the JAX package accepts
+// the MXU's order under the fast tier's noise ceiling).
 //
 // Plane schedule of one step (X visible to the cluster on entry and exit):
 //   X^2 = X X -> W                   (W_i first holds T; after a barrier each
@@ -104,7 +110,7 @@ struct Body {
   using Acc = float[NTW][4];
 
   float *Xr, *Xi, *Wr, *Wi, *Sr, *Si, *slots;
-  int rank, row0, warp, lane, g, q, band, grp, m, kmax8;
+  int rank, row0, warp, lane, g, q, band, grp, m, kmax8, kmax16;
 
   __device__ Body(float* smem, int m) {
     Xr = smem;
@@ -125,6 +131,7 @@ struct Body {
     grp = warp % C::CG;
     this->m = m;
     kmax8 = min(C::P, (m + 7) / 8 * 8);
+    kmax16 = min(C::P, (m + 15) / 16 * 16);
   }
 
   // local row and column of element e of tile j of this warp's output
@@ -251,45 +258,52 @@ struct Body {
     }
   }
 
-  // The products of one bf16 low step in IEEE fp32 FMAs, each sum in k
-  // order from 0 (the plain version's order, so that its bf16 roundings fall
-  // as the plain version's do): t1 = Lr Rr, t2 = Li Ri and t3 (KARA: (Lr +
-  // Li)(Rr + Ri), the operand sums rounded to bf16; else Lr Ri), each in
-  // its own accumulator.  The operands are bf16-valued, so every product
-  // is exact.
+  // One-pass products over the first kmax16 k (module header): t1 = Lr Rr,
+  // t2 = Li Ri and t3 (KARA: (Lr + Li)(Rr + Ri), the operand sums formed in
+  // fp32; else Lr Ri), each operand rounded to bf16, each term in its own
+  // fp32 accumulator.  A register of a fragment holds PTX's k pair (2q, 2q
+  // + 1) or (2q + 8, 2q + 9), read from columns / rows (q, q + 4) or (q +
+  // 8, q + 12) of the 16-deep step (tc_product.cuh's order).
   template <bool KARA>
-  __device__ void product_fma(const float* Lr, const float* Li, const float* Rr, const float* Ri,
-                              Acc& t1, Acc& t2, Acc& t3) const {
+  __device__ void product16(const float* Lr, const float* Li, const float* Rr, const float* Ri,
+                            Acc& t1, Acc& t2, Acc& t3) const {
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) t1[j][e] = t2[j][e] = t3[j][e] = 0.f;
     const int r0 = band * 16 + g;
-    const int c0 = grp * NTW * 8 + 2 * q;
-#pragma unroll 2
-    for (int k = 0; k < m; ++k) {
-      float xr[2], xi[2], xs[2];
+    const int n0 = grp * NTW * 8 + g;
+    for (int k0 = 0; k0 < kmax16; k0 += 16) {
+      tcp::CAFrag16 a;
+      const int ia[4] = {r0 * S + k0 + q, (r0 + 8) * S + k0 + q, r0 * S + k0 + q + 8,
+                         (r0 + 8) * S + k0 + q + 8};
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        xr[u] = Lr[(r0 + 8 * u) * S + k];
-        xi[u] = Li[(r0 + 8 * u) * S + k];
-        xs[u] = KARA ? bf16_round(xr[u] + xi[u]) : xr[u];
+      for (int e = 0; e < 4; ++e) {
+        const float xr0 = Lr[ia[e]], xr1 = Lr[ia[e] + 4];
+        const float xi0 = Li[ia[e]], xi1 = Li[ia[e] + 4];
+        a.r[e] = tcp::pack_bf16(xr0, xr1);
+        a.i[e] = tcp::pack_bf16(xi0, xi1);
+        if (KARA) a.s[e] = tcp::pack_bf16(xr0 + xi0, xr1 + xi1);
       }
-      const float* yr = rrow(Rr, Sr, k) + c0;
-      const float* yi = rrow(Ri, Si, k) + c0;
+      const float* br = rrow(Rr, Sr, k0) + q * S + n0;
+      const float* bi = rrow(Ri, Si, k0) + q * S + n0;
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
-        const float2 a = *reinterpret_cast<const float2*>(yr + 8 * j);
-        const float2 b = *reinterpret_cast<const float2*>(yi + 8 * j);
-        const float ys[2] = {KARA ? bf16_round(a.x + b.x) : b.x,
-                             KARA ? bf16_round(a.y + b.y) : b.y};
+        tcp::CBFrag16 b;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int u = e >> 1, v = e & 1;
-          t1[j][e] = fmaf(xr[u], v ? a.y : a.x, t1[j][e]);
-          t2[j][e] = fmaf(xi[u], v ? b.y : b.x, t2[j][e]);
-          t3[j][e] = fmaf(xs[u], ys[v], t3[j][e]);
+        for (int e = 0; e < 2; ++e) {
+          const float yr0 = br[8 * e * S + 8 * j], yr1 = br[(8 * e + 4) * S + 8 * j];
+          const float yi0 = bi[8 * e * S + 8 * j], yi1 = bi[(8 * e + 4) * S + 8 * j];
+          b.r[e] = tcp::pack_bf16(yr0, yr1);
+          b.i[e] = tcp::pack_bf16(yi0, yi1);
+          if (KARA) b.s[e] = tcp::pack_bf16(yr0 + yi0, yr1 + yi1);
         }
+        tcp::mma16(t1[j], a.r, b.r);
+        tcp::mma16(t2[j], a.i, b.i);
+        if constexpr (KARA)
+          tcp::mma16(t3[j], a.s, b.s);
+        else
+          tcp::mma16(t3[j], a.r, b.i);
       }
     }
   }
@@ -321,12 +335,33 @@ struct Body {
     return s;
   }
 
-  // One step with fp32 products; a step that is not hi is re-projected.
+  // c0 = Lr Rr - Li Ri, c1 = Lr Ri (FULL: Lr Ri + Li Rr), fp32 products;
+  // ONE: one-pass, c1 = Lr Ri (FULL: Karatsuba's imaginary part), t scratch
+  template <bool ONE, bool FULL>
+  __device__ __forceinline__ void product(const float* Lr, const float* Li, const float* Rr,
+                                          const float* Ri, Acc& c0, Acc& c1, Acc& t) const {
+    if constexpr (ONE) {
+      product16<FULL>(Lr, Li, Rr, Ri, c0, t, c1);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (FULL) c1[j][e] = (c1[j][e] - c0[j][e]) - t[j][e];
+          c0[j][e] = c0[j][e] - t[j][e];
+        }
+    } else {
+      product32<FULL>(Lr, Li, Rr, Ri, c0, c1);
+    }
+  }
+
+  // One step on the fp32 iterate, its products fp32 or (ONE) one-pass; a
+  // step that is not hi is re-projected.
+  template <bool ONE>
   __device__ void step32(float a, float b, float c, bool reproject) const {
     Acc c0, c1, t;
     // X^2 = X X: X2r = XrXr - XiXi, X2i = T - T^T with T = Xr Xi
     stage(Xr, Xi);
-    product32<false>(Xr, Xi, Xr, Xi, c0, c1);
+    product<ONE, false>(Xr, Xi, Xr, Xi, c0, c1, t);
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
@@ -342,7 +377,7 @@ struct Body {
     sync_all();  // X^2 visible
     // X^4 = X^2 X^2, then Y = a I + b X^2 + c X^4 over W
     stage(Wr, Wi);
-    product32<false>(Wr, Wi, Wr, Wi, c0, c1);
+    product<ONE, false>(Wr, Wi, Wr, Wi, c0, c1, t);
     Acc x2i;
     sync_all();  // every read of W done
 #pragma unroll
@@ -363,7 +398,7 @@ struct Body {
     sync_all();  // Y visible
     // X <- X Y
     stage(Wr, Wi);
-    product32<true>(Xr, Xi, Wr, Wi, c0, c1);
+    product<ONE, true>(Xr, Xi, Wr, Wi, c0, c1, t);
     __syncthreads();  // this CTA's reads of X (only it reads X as a left operand)
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
@@ -386,13 +421,14 @@ struct Body {
     sync_all();  // the new X visible
   }
 
-  // One low step with bf16 storage: every product rounded once, every
-  // elementwise result rounded, as psd_project_polar_plain's bf16_step.
+  // One low step with bf16 storage: every product one-pass and rounded
+  // once, every elementwise result rounded, as psd_project_polar_plain's
+  // bf16_step.
   __device__ void step16(float a, float b, float c) const {
     Acc t1, t2, t3, t;
     // X^2: X2r = bf(bf(XrXr) - bf(XiXi)), X2i = bf(T - T^T), T = bf(XrXi)
     stage(Xr, Xi);
-    product_fma<false>(Xr, Xi, Xr, Xi, t1, t2, t3);
+    product16<false>(Xr, Xi, Xr, Xi, t1, t2, t3);
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
@@ -409,7 +445,7 @@ struct Body {
     sync_all();
     // X^4 and Y = bf(bf(a I + bf(b X2)) + bf(c X4)) over W
     stage(Wr, Wi);
-    product_fma<false>(Wr, Wi, Wr, Wi, t1, t2, t3);
+    product16<false>(Wr, Wi, Wr, Wi, t1, t2, t3);
     Acc x2i;
     sync_all();
 #pragma unroll
@@ -435,7 +471,7 @@ struct Body {
     sync_all();
     // X Y (Karatsuba), then its Hermitian part
     stage(Wr, Wi);
-    product_fma<true>(Xr, Xi, Wr, Wi, t1, t2, t3);
+    product16<true>(Xr, Xi, Wr, Wi, t1, t2, t3);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
@@ -485,8 +521,10 @@ struct Body {
 
   // X <- the sign schedule applied to X (scaled, visible on entry).  Step s
   // is hi iff s >= nsteps - hi_steps; a step that is not hi is re-projected
-  // and, with BF, runs with bf16 storage (X bf16-valued on entry).
-  template <bool BF>
+  // and its products are one-pass; with BF it runs with bf16 storage (X
+  // bf16-valued on entry).  LOW: the caller's schedules have low steps (K7's
+  // is all hi, so its kernel builds no one-pass product).
+  template <bool BF, bool LOW>
   __device__ void sign_schedule(const Schedule& sched, int hi_steps) const {
     for (int s = 0; s < sched.n; ++s) {
       const bool hi = s >= sched.n - hi_steps;
@@ -496,7 +534,13 @@ struct Body {
           continue;
         }
       }
-      step32(sched.a[s], sched.b[s], sched.c[s], !hi);
+      if constexpr (LOW && !BF) {
+        if (!hi) {
+          step32<true>(sched.a[s], sched.b[s], sched.c[s], true);
+          continue;
+        }
+      }
+      step32<false>(sched.a[s], sched.b[s], sched.c[s], !hi);
     }
   }
 

@@ -1,5 +1,7 @@
-// Tensor-core complex products at fp32-faithful accuracy, for kernels that
-// keep a matrix's planes on chip across a thread-block cluster.
+// Tensor-core complex products for kernels that keep a matrix's planes on
+// chip across a thread-block cluster, in the precision tiers of the JAX
+// package: fp32-faithful products (its HIGHEST), the 3-pass split-bf16
+// product (three_pass) and one-pass products (its DEFAULT).
 //
 // Layout: a P x P complex matrix (P = 112 or 128, zero-padded past its
 // logical side) is split into P / 16 row bands of 16 rows; CTA q of a
@@ -13,34 +15,54 @@
 // walks the others in rank order from there, so in each round every CTA
 // serves one reader.
 //
-// Products: mma.sync m16n8k8 TF32 with fp32 accumulation, in the 3xTF32
-// split x = hi + lo, hi = tf32_rn(x), lo = x - hi (exact; the tensor core
-// reads its top 19 bits), x y ~ lo_x hi_y + hi_x lo_y + hi_x hi_y: the
-// dropped lo_x lo_y term and lo's truncation leave ~2^-21 relative per
-// product, fp32's level.  Each 8-deep step's sum starts fresh and is added
-// to the running sum in fp32 (the tensor cores truncate what they
-// accumulate).  A complex product is the 3-product Karatsuba form t1 = Lr
-// Rr, t2 = Li Ri, t3 = (Lr + Li)(Rr + Ri), Cr = t1 - t2, Ci = t3 - t1 - t2;
-// the operand sums are formed in fp32 before the split, so no temporary
-// plane is needed and the three real products accumulate in registers.
+// fp32 products (Prec::TF32X3): mma.sync m16n8k8 TF32 with fp32
+// accumulation, in the 3xTF32 split x = hi + lo, hi = tf32_rn(x), lo = x -
+// hi (exact; the tensor core reads its top 19 bits), x y ~ lo_x hi_y + hi_x
+// lo_y + hi_x hi_y: the dropped lo_x lo_y term and lo's truncation leave
+// ~2^-21 relative per product, fp32's level.  Each 8-deep step's sum starts
+// fresh and is added to the running sum in fp32 (the tensor cores truncate
+// what they accumulate).  A complex product is the 3-product Karatsuba form
+// t1 = Lr Rr, t2 = Li Ri, t3 = (Lr + Li)(Rr + Ri), Cr = t1 - t2, Ci = t3 -
+// t1 - t2; the operand sums are formed in fp32 before the split, so no
+// temporary plane is needed and the three real products accumulate in
+// registers.
 //
-// Split-bf16 products (SPLIT): the 3-pass contract of kernels/polar.py's
-// split product (mm with split), x y ~ xh yh + xh yl + xl yh with xh =
-// bf16_rn(x), xl = x - xh, realized as xh y + xl yh: xh is exact in TF32,
-// so xh y is two mma against y's TF32 split, and xl yh two mma of xl's
-// TF32 split against yh.  The
-// dropped xl yl is the contract's own; what the tensor cores add is fp32's
-// level (~2^-21).  Four mma per real product instead of three.  A split
-// product that must drop the same terms as a 4-multiplication complex
-// product (KARA = false: Cr = Lr Rr - Li Ri, Ci = Lr Ri + Li Rr) takes
-// that form instead of Karatsuba's.
+// Split-bf16 products (Prec::SPLIT): the 3-pass contract of
+// kernels/polar.py's split product (mm with split), x y ~ xh yh + xh yl +
+// xl yh with xh = bf16_rn(x), xl = x - xh, realized as xh y + xl yh: xh is
+// exact in TF32, so xh y is two mma against y's TF32 split, and xl yh two
+// mma of xl's TF32 split against yh.  The dropped xl yl is the contract's
+// own; what the tensor cores add is fp32's level (~2^-21).  Four mma per
+// real product instead of three.
+//
+// One-pass products (Prec::ONE_PASS, K2/K3's tier for the products of a
+// step that is not hi): one mma.sync m16n8k8 TF32 per real product and
+// 8-deep step, each operand rounded to tf32 (to_tf32: the hi part of the
+// split alone; Karatsuba's operand sums formed in fp32 and rounded once),
+// its exact products summed in the mma's fp32 accumulator over the whole
+// K (at tf32's 2^-11 the tensor cores' truncated sums, ~2^-23 a step, cost
+// nothing).  The JAX package's DEFAULT is a bf16 one-pass product; K2 and
+// K3 take tf32 because at bf16 two valid summation orders of the same
+// arithmetic leave phi further apart after 100 iterations than the gate
+// that holds the kernel to its plain version allows (PERF.md, section 6).
+// For the bf16 one-pass products of polar_cta.cuh (K1), pack_bf16 and
+// mma16 below: mma.sync m16n8k16 bf16, each operand rounded to
+// nearest-even bf16 (cvt.rn.bf16x2.f32, two values a register).
+//
+// A split or one-pass product that must round the same operands as the
+// Hermitian square's three products (KARA = false) takes the
+// 4-multiplication form instead of Karatsuba's: Cr = Lr Rr - Li Ri, Ci =
+// Lr Ri + Li Rr, whose terms are the square's (Li Rr = -(Lr Ri)^T for a
+// Hermitian square).
 //
 // Warps: P / 16; warp w owns output columns [16 w, 16 w + 16) of the band,
 // two 8-column n-tiles, for every product.  Fragment and accumulator
 // layouts are PTX's for m16n8k8 .tf32: with g = lane / 4 and q = lane % 4,
 // a = {L[g][k+q], L[g+8][k+q], L[g][k+q+4], L[g+8][k+q+4]}, b = {R[k+q][n+g],
 // R[k+q+4][n+g]}, d = {C[g][n+2q], C[g][n+2q+1], C[g+8][n+2q],
-// C[g+8][n+2q+1]}.
+// C[g+8][n+2q+1]}.  For m16n8k16 .bf16 the accumulator layout is the same,
+// and a register holds two k of a fragment: PTX's k = 2q + i (i = 0, 1) and
+// 2q + 8 + i.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -152,6 +174,23 @@ __device__ __forceinline__ void mmabf_new(float (&d)[4], const SAFrag& a, const 
   mma(d, a.h, b.t1);
 }
 
+// Two values rounded to nearest-even bf16, packed: lo in bits 0-15, hi in
+// bits 16-31 (one cvt.rn.bf16x2.f32)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// d += a b, one-pass: bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Fragments of a complex operand: real part, imaginary part, their sum.
 struct CAFrag {
   AFrag r, i, s;
@@ -164,6 +203,15 @@ struct CSAFrag {
 };
 struct CSBFrag {
   SBFrag r, i, s;
+};
+// bf16 one-pass fragments of a 16-deep step (polar_cta.cuh): real part,
+// imaginary part and (Karatsuba) their fp32 sum, each rounded to bf16 and
+// packed.
+struct CAFrag16 {
+  uint32_t r[4], i[4], s[4];
+};
+struct CBFrag16 {
+  uint32_t r[2], i[2], s[2];
 };
 // Karatsuba accumulators of one complex n-tile (the 4-multiplication form
 // keeps Lr Ri + Li Rr in t3).
@@ -277,6 +325,55 @@ __device__ __forceinline__ void split_mma(CAcc& c, const CSAFrag& a, const CSBFr
   }
 }
 
+// One-pass fragments at the positions of load_a / load_b: each operand
+// (KARA: and the fp32 operand sums) rounded to tf32, the hi part of the
+// 3xTF32 split alone.
+template <int SA, bool KARA>
+__device__ __forceinline__ void load_a_tf32(CAFrag& f, const float* Lr, const float* Li, int k0,
+                                            int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[4] = {g * SA + k0 + q, (g + 8) * SA + k0 + q, g * SA + k0 + q + 4,
+                      (g + 8) * SA + k0 + q + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr = Lr[idx[e]], xi = Li[idx[e]];
+    f.r.hi[e] = to_tf32(xr);
+    f.i.hi[e] = to_tf32(xi);
+    if (KARA) f.s.hi[e] = to_tf32(xr + xi);
+  }
+}
+
+template <int SB, bool KARA>
+__device__ __forceinline__ void load_b_tf32(CBFrag& f, const float* Sr, const float* Si, int k0,
+                                            int n0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[2] = {(k0 + q) * SB + n0 + g, (k0 + q + 4) * SB + n0 + g};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float xr = Sr[idx[e]], xi = Si[idx[e]];
+    f.r.hi[e] = to_tf32(xr);
+    f.i.hi[e] = to_tf32(xi);
+    if (KARA) f.s.hi[e] = to_tf32(xr + xi);
+  }
+}
+
+// c += one 8-deep step's one-pass products: Karatsuba's three, or the
+// 4-multiplication form's t1 = Lr Rr, t2 = Li Ri, t3 = Lr Ri + Li Rr
+template <bool KARA>
+__device__ __forceinline__ void one_pass_mma(CAcc& c, const CAFrag& a, const CBFrag& b) {
+  mma(c.t1, a.r.hi, b.r.hi);
+  mma(c.t2, a.i.hi, b.i.hi);
+  if (KARA) {
+    mma(c.t3, a.s.hi, b.s.hi);
+  } else {
+    mma(c.t3, a.r.hi, b.i.hi);
+    mma(c.t3, a.i.hi, b.r.hi);
+  }
+}
+
+// The tier of band_product's products (header).
+enum class Prec { TF32X3, SPLIT, ONE_PASS };
+
 // C_l = L_l R for NL local left bands (Lr[l], Li[l]: band planes in this
 // CTA's shared memory) and the right operand R whose band q lies in CTA q's
 // planes at the offsets of this CTA's (Rr, Ri).  Only the first ceil(m / 16)
@@ -284,10 +381,11 @@ __device__ __forceinline__ void split_mma(CAcc& c, const CSAFrag& a, const CSBFr
 // n-tile j of this warp's columns of C_l.  stage: 4 SLICE floats (two
 // buffers of two planes).  Every thread of the CTA must call it; it starts
 // with a barrier, so the caller may rewrite the stage right before, and it
-// leaves the left and right planes untouched.  SPLIT: split-bf16 products
-// (Karatsuba's, or with KARA = false the 4-multiplication form, whose
-// imaginary part is acc_im4).
-template <int P, int NL, bool SPLIT = false, bool KARA = true>
+// leaves the left and right planes untouched.  PREC: the products' tier;
+// SPLIT and ONE_PASS take Karatsuba's form, or with KARA = false the
+// 4-multiplication form, whose imaginary part is acc_im4 (TF32X3 is
+// always Karatsuba's).
+template <int P, int NL, Prec PREC = Prec::TF32X3, bool KARA = true>
 __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* Rr,
                                              float* Ri, const float* const (&Lr)[NL],
                                              const float* const (&Li)[NL], float* stage, int m,
@@ -335,7 +433,19 @@ __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* 
     if (i + 1 < nbands) fetch(band(i + 1));
 #pragma unroll
     for (int kk = 0; kk < BAND; kk += 8) {
-      if constexpr (SPLIT) {
+      if constexpr (PREC == Prec::ONE_PASS) {
+        CBFrag b[NPW];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+          load_b_tf32<L::SB, KARA>(b[j], st, st + L::SLICE, kk, warp * 16 + 8 * j, lane);
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          CAFrag a;
+          load_a_tf32<L::SA, KARA>(a, Lr[l], Li[l], q * BAND + kk, lane);
+#pragma unroll
+          for (int j = 0; j < NPW; ++j) one_pass_mma<KARA>(acc[l][j], a, b[j]);
+        }
+      } else if constexpr (PREC == Prec::SPLIT) {
         CSBFrag b[NPW];
 #pragma unroll
         for (int j = 0; j < NPW; ++j)

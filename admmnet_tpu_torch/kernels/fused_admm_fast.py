@@ -32,13 +32,30 @@ closing |M| products: G' is the sign iterate).  The phi output then reads
 phi + 0 G'[n, :], the final G' row, which keeps the chain live and carries a
 non-finite value through as JAX's debug output does.
 
-Precision rule (kernel and plain version alike): a schedule step is "hi"
-iff ``all_hi or s >= nsteps - hi_steps``, the closing products iff
-``final_hi``; a hi product is the 3-pass split-bf16 product when
-``three_pass``, every other product is fp32 (IEEE in the plain version,
-3xTF32 on the kernel's tensor cores, fp32's accuracy); the iterate is
-re-projected onto the Hermitian subspace after a step iff it is not hi or
-``three_pass``.  The kernel runs the ablate variants without three_pass.
+Precision rule, the JAX package's: a schedule step is "hi" iff
+``all_hi or s >= nsteps - hi_steps``, the closing products iff
+``final_hi``; a hi product is fp32, or the 3-pass split-bf16 product when
+``three_pass``; every other product is one-pass: each operand (an operand
+sum of the Karatsuba form is formed in fp32 first) is rounded, and the
+exact products are summed in fp32.  The iterate is re-projected onto the
+Hermitian subspace after a step iff it is not hi or ``three_pass``.  The
+tier follows the device, as ``jax.lax.Precision.DEFAULT`` does in JAX: on
+the CPU, where DEFAULT is fp32 in JAX, the plain version computes every
+product that is not split in IEEE fp32; on the card, fp32 products run in
+3xTF32 on the tensor cores (fp32-faithful), split products as four TF32
+products, and one-pass products as one TF32 ``mma.sync`` m16n8k8 each,
+the operands rounded to tf32 (ties away from zero; a square's in the
+4-multiplication form, which rounds the operands of the Hermitian square's
+three products).  DEFAULT rounds to bf16 on the MXU; a bf16 kernel sat up
+to 7.9e-2 per instance from its emulation after 100 iterations, as two
+summation orders of the emulation itself do (PERF.md, section 6), beyond
+the JAX package's 0.05 band for the fast mode's phi, so K2 and K3 round to
+tf32.
+``one_pass=True`` makes the plain version round the low products'
+operands as the card does: the reference the kernel is held to, which no
+caller on the main path sets.  The kernel runs ``three_pass`` only with
+every product hi (fused_exact: ``all_hi`` and ``final_hi``), and the
+ablate variants without three_pass, in the card's tier.
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ from admmnet_tpu_torch.kernels.polar import (
     frobenius_inv,
     padded_side,
     sign_schedule,
+    tf32_rna,
 )
 from admmnet_tpu_torch.ops.projections import POLAR_BF16_POLISH, POLAR_BF16_SCHEDULE
 
@@ -180,15 +198,27 @@ def project_sum_inf_block(t, A, outer_iters, inner_iters, bracket=None):
     return h, (lo_n, hi_n)
 
 
+def one_pass_products(nsteps: int, hi_steps: int, all_hi: bool, final_hi: bool) -> int:
+    """Useful real products per iteration that the card runs one-pass, for a
+    full schedule of nsteps: 9 a low step (the Hermitian squares' 3 each,
+    the Karatsuba product's 3) and the 3 closing ones when final_hi is off.
+    The kernel issues 11 a low step: its squares take the 4-multiplication
+    form."""
+    low = 0 if all_hi else max(nsteps - hi_steps, 0)
+    return 9 * low + (0 if final_hi else 3)
+
+
 def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
                 hi_steps, final_hi, layout, fold_diag, all_hi, three_pass,
-                ablate="none"):
+                ablate="none", one_pass=False):
     """The fused kernels' iteration in torch ops; phi (B, n) complex64.
 
     ``project(t, A)`` is the H-projection of (B, n) rows (A: (B, 1));
     ``schedule`` is the full schedule the kernel runs.  Shared by K2, K3
     and K7 (``kernels.fused_admm``), which differ in the projection and the
     knobs.  ``ablate``: K2's profiling variants (unfolded lean layout).
+    ``one_pass``: the low and (final_hi off) closing products as the card
+    computes them (module docstring).
     """
     B, n = y.shape
     m = n + 1
@@ -199,6 +229,8 @@ def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
     lists = layout == "lists"
     lam_inv_sq = float(1.0 / lambda_val**2)
     final_split = final_hi and three_pass
+    rnd = tf32_rna if one_pass else None
+    final_rnd = None if final_hi else rnd
     idx = torch.arange(n, device=dev)
 
     def zscale(z):
@@ -257,11 +289,11 @@ def solve_plain(y, b, sigma, num_iters, rho, lambda_val, project, *, schedule,
             Mi = 0.5 * (Mi - tr(Mi))
         inv = NORM_ABLATED_INV if ablate == "norm" else frobenius_inv(Mr, Mi)
         Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps, all_hi,
-                               three_pass)
+                               three_pass, one_pass_round=rnd)
         if ablate == "finals":  # G' is the sign iterate
             Pr, Pi = Xr, Xi
         else:
-            Ar, Ai = abs_product(Xr, Xi, Mr, Mi, final_split)
+            Ar, Ai = abs_product(Xr, Xi, Mr, Mi, final_split, final_rnd)
             Pr = 0.5 * (Mr + Ar)
             Pi = 0.5 * (Mi + Ai)
         if lists:
@@ -289,10 +321,11 @@ def admm_solve_fused_fast_plain(
     y, b, sigma, num_iters, rho=1.0, lambda_val=1.0, *, hi_steps=0,
     outer_iters=6, inner_iters=5, schedule=POLAR_BF16_SCHEDULE, final_hi=True,
     layout="lean", ablate="none", loop_unroll=1, fold_diag=False, warm_root=False,
-    all_hi=False, three_pass=False,
+    all_hi=False, three_pass=False, one_pass=False,
 ):
     """The kernel's computation in torch ops; phi (B, n) complex64.
-    ``loop_unroll`` changes no arithmetic and is ignored."""
+    ``loop_unroll`` changes no arithmetic and is ignored; ``one_pass``: the
+    card's one-pass products (module docstring)."""
     del loop_unroll
     check_variant(layout, ablate, fold_diag, warm_root, all_hi, three_pass)
     B = y.shape[0]
@@ -309,7 +342,7 @@ def admm_solve_fused_fast_plain(
         y, b, sigma, num_iters, rho, lambda_val, project,
         schedule=full_schedule(schedule, hi_steps, all_hi), hi_steps=hi_steps,
         final_hi=final_hi, layout=layout, fold_diag=fold_diag, all_hi=all_hi,
-        three_pass=three_pass, ablate=ablate,
+        three_pass=three_pass, ablate=ablate, one_pass=one_pass,
     )
 
 
@@ -341,8 +374,8 @@ def admm_solve_fused_fast(
     """Fixed-iteration solve of (B, n) complex64 instances; phi (B, n).
 
     CUDA tensors launch the kernel (one thread-block cluster per instance,
-    the whole loop inside it); CPU tensors run
-    ``admm_solve_fused_fast_plain``.
+    the whole loop inside it, its low products one-pass); CPU tensors run
+    ``admm_solve_fused_fast_plain`` (fp32 products).
     ``kblk`` (the TPU kernel's instance interleave) and ``loop_unroll`` (a
     Mosaic loop-unroll factor, no arithmetic) have no effect on Hopper.
     The argument guards are the JAX wrapper's; ``ablate`` selects a
@@ -362,9 +395,12 @@ def admm_solve_fused_fast(
     check_launch(y, b, sigma)
     if ablate != "none" and three_pass:
         raise ValueError("the kernel runs the ablate variants without three_pass")
+    sched = full_schedule(schedule, hi_steps, all_hi)
+    if three_pass and one_pass_products(len(sched), hi_steps, all_hi, final_hi):
+        raise ValueError("the kernel runs three_pass only with every product hi "
+                         "(all_hi or hi_steps covering the schedule, and final_hi)")
     from admmnet_tpu_torch.kernels import _build
 
-    sched = full_schedule(schedule, hi_steps, all_hi)
     yob_r, yob_i, w, A = solve_inputs(y, b, sigma, rho)
     phi_r = torch.empty((B, n), dtype=torch.float32, device=y.device)
     phi_i = torch.empty_like(phi_r)

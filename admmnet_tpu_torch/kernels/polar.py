@@ -16,17 +16,25 @@ Modes, as in the JAX package:
   and elementwise results to bf16, as the JAX kernel's bf16 arithmetic
   does; the hi steps and the closing products run on the fp32 iterate.
 
-The plain version computes every product in IEEE fp32 (what the JAX kernel
-computes in interpret mode).  On the card every fp32 product, the closing
-|M| products included, runs in 3xTF32 on the tensor cores (fp32-faithful:
-three TF32 products per product), and ``bf16_store``'s low steps sum
-their exact bf16 products with fp32 FMAs in k order, as the plain version
-does, so that their bf16 roundings fall where the plain version's do.
-The kernel computes each whole product in one thread block (P =
-112, m <= 112) or one cluster of two (P = 128, m <= 128), the planes in
-shared memory (``csrc/polar_cta.cuh``).  The matrices are zero-padded to
-P; zero eigenvalues are fixed points of every schedule, so the padding is
-exact.
+Precision rule, the JAX package's own: a hi step's products and the
+closing |M| products are fp32 products; a low step's products are
+one-pass products, as ``jax.lax.Precision.DEFAULT`` is: each operand (an
+operand sum of the Karatsuba form is formed in fp32 first) is rounded to
+nearest-even bf16, and the exact products are summed in fp32.  The tier
+follows the device, as DEFAULT does in JAX.  On the card, fp32 products
+run in 3xTF32 on the tensor cores (three TF32 products per product,
+fp32-faithful) and one-pass products as bf16 ``mma.sync`` m16n8k16 with
+fp32 accumulation.  On the CPU, where DEFAULT is fp32 in JAX, the plain
+version computes every product in IEEE fp32; ``one_pass=True`` makes it
+round the low products' operands as the card does (the reference that the
+kernel is held to; no caller on the main path sets it).  With
+``bf16_store`` the low steps' operands are bf16-valued already, so the
+plain version's and the kernel's terms are the same exact products and
+only the order of their fp32 sums differs.  The kernel computes each
+whole product in one thread block (P = 112, m <= 112) or one cluster of
+two (P = 128, m <= 128), the planes in shared memory
+(``csrc/polar_cta.cuh``).  The matrices are zero-padded to P; zero
+eigenvalues are fixed points of every schedule, so the padding is exact.
 """
 
 from __future__ import annotations
@@ -79,13 +87,29 @@ def schedule_for(mode: str, hi_steps):
 # ---- plain version: the kernel's dataflow in batched torch ops -------------
 
 
-def mm(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
-    """fp32 product, or the 3-pass split-bf16 product ah bh + ah bl + al bh
-    (x = xh + xl, xh = bf16_rn(x), xl = x - xh in fp32)."""
+def bf16_rn(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to nearest-even bf16, as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 (10 mantissa bits), ties away from zero."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, split: bool, one_pass_round=None) -> torch.Tensor:
+    """fp32 product; the 3-pass split-bf16 product ah bh + ah bl + al bh
+    (x = xh + xl, xh = bf16_rn(x), xl = x - xh in fp32) with ``split``; the
+    one-pass product rnd(a) rnd(b), summed in fp32, with ``one_pass_round``
+    = rnd (``bf16_rn``: the JAX package's DEFAULT, K1's tier on the card;
+    ``tf32_rna``: K2's and K3's)."""
+    if one_pass_round is not None:
+        return one_pass_round(a) @ one_pass_round(b)
     if not split:
         return a @ b
-    ah = a.to(torch.bfloat16).to(torch.float32)
-    bh = b.to(torch.bfloat16).to(torch.float32)
+    ah = bf16_rn(a)
+    bh = bf16_rn(b)
     return ah @ bh + ah @ (b - bh) + (a - ah) @ bh
 
 
@@ -93,17 +117,19 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
-def herm_square(Xr, Xi, split):
+def herm_square(Xr, Xi, split, one_pass_round=None):
     """X^2 of Hermitian X in 3 real products: X2i = XrXi - (XrXi)^T."""
-    XrXi = mm(Xr, Xi, split)
-    return mm(Xr, Xr, split) - mm(Xi, Xi, split), XrXi - _t(XrXi)
+    XrXi = mm(Xr, Xi, split, one_pass_round)
+    return (mm(Xr, Xr, split, one_pass_round) - mm(Xi, Xi, split, one_pass_round),
+            XrXi - _t(XrXi))
 
 
-def karatsuba(Ar, Ai, Br, Bi, split):
-    """(Ar + i Ai)(Br + i Bi) in 3 real products."""
-    t1 = mm(Ar, Br, split)
-    t2 = mm(Ai, Bi, split)
-    t3 = mm(Ar + Ai, Br + Bi, split)
+def karatsuba(Ar, Ai, Br, Bi, split, one_pass_round=None):
+    """(Ar + i Ai)(Br + i Bi) in 3 real products (the operand sums in
+    fp32)."""
+    t1 = mm(Ar, Br, split, one_pass_round)
+    t2 = mm(Ai, Bi, split, one_pass_round)
+    t3 = mm(Ar + Ai, Br + Bi, split, one_pass_round)
     return t1 - t2, t3 - t1 - t2
 
 
@@ -146,12 +172,13 @@ def bf16_step(Xr, Xi, a, b, c):
 
 
 def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False,
-                  bf16_store=False):
+                  bf16_store=False, one_pass_round=None):
     """Apply the sign schedule to the scaled iterate X.  Step s is "hi" iff
     all_hi or s >= nsteps - hi_steps; hi products are split iff three_pass;
     the iterate is re-projected after a step iff it is not hi or three_pass.
     ``bf16_store``: the low steps run ``bf16_step`` on the iterate rounded
-    to bf16; it is promoted to fp32 at the first hi step."""
+    to bf16; it is promoted to fp32 at the first hi step.
+    ``one_pass_round``: the low steps' products are one-pass (``mm``)."""
     nsteps = len(schedule)
     eye = torch.eye(Xr.shape[-1], dtype=Xr.dtype, device=Xr.device)
     if bf16_store:
@@ -163,32 +190,43 @@ def sign_schedule(Xr, Xi, schedule, hi_steps, all_hi=False, three_pass=False,
             continue
         Xr, Xi = Xr.to(torch.float32), Xi.to(torch.float32)
         split = hi and three_pass
-        X2r, X2i = herm_square(Xr, Xi, split)
-        X4r, X4i = herm_square(X2r, X2i, split)
+        rnd = None if hi else one_pass_round
+        X2r, X2i = herm_square(Xr, Xi, split, rnd)
+        X4r, X4i = herm_square(X2r, X2i, split, rnd)
         Yr = a * eye + b * X2r + c * X4r
         Yi = b * X2i + c * X4i
-        Xr, Xi = karatsuba(Xr, Xi, Yr, Yi, split)
+        Xr, Xi = karatsuba(Xr, Xi, Yr, Yi, split, rnd)
         if not hi or three_pass:
             Xr = 0.5 * (Xr + _t(Xr))
             Xi = 0.5 * (Xi - _t(Xi))
     return Xr.to(torch.float32), Xi.to(torch.float32)
 
 
-def abs_product(Xr, Xi, Mr, Mi, split):
+def abs_product(Xr, Xi, Mr, Mi, split, one_pass_round=None):
     """A = Hermitian part of S M, S the sign iterate: |M| in M's scale."""
-    Ar, Ai = karatsuba(Xr, Xi, Mr, Mi, split)
+    Ar, Ai = karatsuba(Xr, Xi, Mr, Mi, split, one_pass_round)
     return 0.5 * (Ar + _t(Ar)), 0.5 * (Ai - _t(Ai))
 
 
 def psd_project_polar_plain(M: torch.Tensor, mode: str = "accurate",
-                            hi_steps=None, bf16_store: bool = False) -> torch.Tensor:
-    """The kernel's computation in torch ops; complex64 (..., m, m) in/out."""
+                            hi_steps=None, bf16_store: bool = False,
+                            one_pass: bool = False) -> torch.Tensor:
+    """The kernel's computation in torch ops; complex64 (..., m, m) in/out.
+    ``one_pass``: the low steps' products as the card computes them (module
+    docstring)."""
     schedule, hi_steps = schedule_for(mode, hi_steps)
+    return polar_plain_schedule(M, schedule, hi_steps, bf16_store and mode == "fast",
+                                one_pass)
+
+
+def polar_plain_schedule(M, schedule, hi_steps, bf16_store, one_pass):
+    """``psd_project_polar_plain`` with any schedule (as ``launch_schedule``
+    takes it)."""
     Mr = M.real.to(torch.float32)
     Mi = M.imag.to(torch.float32)
     inv = frobenius_inv(Mr, Mi)
-    Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps,
-                           bf16_store=bf16_store and mode == "fast")
+    Xr, Xi = sign_schedule(Mr * inv, Mi * inv, schedule, hi_steps, bf16_store=bf16_store,
+                           one_pass_round=bf16_rn if one_pass else None)
     Ar, Ai = abs_product(Xr, Xi, Mr, Mi, False)
     Pr = 0.5 * (Mr + Ar)
     Pi = 0.5 * (Mi + Ai)
@@ -211,10 +249,10 @@ def psd_project_polar_kernel(M: torch.Tensor, mode: str = "accurate",
     """PSD projection of batched Hermitian complex64 (..., m, m), m <= 128.
 
     A CUDA tensor launches the CUDA kernel (one thread block per matrix, or
-    a cluster of two at P = 128; 3xTF32 tensor-core products); a CPU tensor
-    runs ``psd_project_polar_plain``.  Any other device raises.
-    ``bf16_store`` (fast mode only, as in the JAX package) keeps the iterate
-    of the low steps in bf16.
+    a cluster of two at P = 128; tensor-core products in the module's
+    precision rule); a CPU tensor runs ``psd_project_polar_plain``.  Any
+    other device raises.  ``bf16_store`` (fast mode only, as in the JAX
+    package) keeps the iterate of the low steps in bf16.
     """
     _check_matrix(M)
     if M.device.type == "cpu":
@@ -231,14 +269,24 @@ def psd_project_polar_planes(M: torch.Tensor, mode: str = "accurate", hi_steps=N
                              bf16_store: bool = False):
     """Launch K1 on a CUDA tensor (..., m, m); returns its zero-padded output
     planes (Pr, Pi), each (B, P, P) float32 with B the flattened batch."""
-    P = _check_matrix(M)
+    schedule, hi_steps = schedule_for(mode, hi_steps)
+    return launch_schedule(M, schedule, hi_steps, bf16_store and mode == "fast")
+
+
+def check_launch(M: torch.Tensor) -> None:
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     if not M.is_contiguous():
         raise ValueError("expected a contiguous tensor")
+
+
+def launch_schedule(M: torch.Tensor, schedule, hi_steps: int, bf16_store: bool):
+    """``psd_project_polar_planes`` with any schedule of at most 8 steps:
+    K1's launcher, whose low steps run one-pass (the card's tier)."""
+    P = _check_matrix(M)
+    check_launch(M)
     from admmnet_tpu_torch.kernels import _build
 
-    schedule, hi_steps = schedule_for(mode, hi_steps)
     m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
     B = Mf.shape[0]
@@ -252,8 +300,7 @@ def psd_project_polar_planes(M: torch.Tensor, mode: str = "accurate", hi_steps=N
     with torch.cuda.device(M.device):
         err = lib.polar_psd_launch(
             Mr.data_ptr(), Mi.data_ptr(), Pr.data_ptr(), Pi.data_ptr(),
-            B, P, m, coeffs.ctypes.data, len(schedule), hi_steps,
-            int(bf16_store and mode == "fast"),
+            B, P, m, coeffs.ctypes.data, len(schedule), int(hi_steps), int(bf16_store),
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "polar_psd_launch")

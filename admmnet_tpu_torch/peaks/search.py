@@ -9,10 +9,16 @@
   peak, all peaks and instances at once; round r has half-width
   step * reduce_factor^r.  Results are sorted by height, descending.
 
-``refine_precision`` "highest" and "default" both evaluate the refine
-products in float32 here (the JAX package maps "default" to one-pass bf16
-on the TPU); the bf16 / TF32 remap is queued in ROADMAP.md.  Ties in the
-top-K may be ordered differently from ``lax.top_k``.
+``refine_precision`` follows the JAX package's precision rule, with the
+tier following the device as ``jax.lax.Precision.DEFAULT`` does in JAX:
+"default" on the card evaluates each of the two refine products (S Phi,
+then that times Dc^T) one-pass, as the MXU does: the real and imaginary
+parts of both operands rounded to nearest-even bf16, the exact products
+summed in float32 (``torch.matmul`` on the rounded operands; JAX computes
+these products outside any kernel, so the port leaves them to cuBLAS).
+"highest", and either on the CPU, where DEFAULT is float32 in JAX, is
+float32.  Ties in the top-K may be ordered differently from
+``lax.top_k``.
 """
 
 from __future__ import annotations
@@ -50,8 +56,22 @@ def _local_max_mask(Z: torch.Tensor) -> torch.Tensor:
     return Z >= pooled
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Complex x with its real and imaginary parts rounded to bf16."""
+    def rn(v):
+        return v.to(torch.bfloat16).to(v.dtype)
+    return torch.complex(rn(x.real), rn(x.imag))
+
+
+def refine_product(a: torch.Tensor, b: torch.Tensor, one_pass: bool) -> torch.Tensor:
+    """a @ b of complex tensors, one-pass (operands rounded to bf16) or
+    float32."""
+    return _bf16(a) @ _bf16(b) if one_pass else a @ b
+
+
 def _refine(phi, tau0, f0, cfg: PeakSearchConfig, Nb: int, Nd: int):
     """Fixed-round local zoom.  phi: (B, n); tau0/f0: (B, K)."""
+    one_pass = cfg.refine_precision == "default" and phi.device.type == "cuda"
     P = cfg.refine_points
     Phi = torch.conj(phi).reshape(phi.shape[0], 1, Nb, Nd)
     rel = torch.linspace(-1.0, 1.0, P, dtype=torch.float32, device=phi.device)
@@ -66,7 +86,8 @@ def _refine(phi, tau0, f0, cfg: PeakSearchConfig, Nb: int, Nd: int):
                          cfg.doppler_max - 1e-6)
         S = doppler_steering(fs, Nb)  # (B, K, P, Nb)
         Dc = torch.conj(delay_steering(taus, Nd))  # (B, K, P, Nd)
-        Zl = torch.abs(S @ Phi @ Dc.transpose(-1, -2)) ** 2  # (B, K, P, P)
+        SPhi = refine_product(S, Phi, one_pass)  # (B, K, P, Nd)
+        Zl = torch.abs(refine_product(SPhi, Dc.transpose(-1, -2), one_pass)) ** 2  # (B,K,P,P)
         flat = Zl.reshape(*Zl.shape[:-2], P * P)
         idx = torch.argmax(flat, dim=-1)
         height = torch.gather(flat, -1, idx[..., None])[..., 0]

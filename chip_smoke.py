@@ -43,6 +43,13 @@ and holding each kernel against its plain PyTorch version:
   ``eval_net`` deploys runs/phi10 with classical peak search on the
   labels' test split.
 
+Precision: the kernels run the JAX package's tiers (README, "PyTorch/CUDA
+port"): K1's low schedule steps one-pass bf16, K2's and K3's low and
+(``final_hi`` off) closing products one-pass TF32, every other product
+fp32-faithful.  The fast modes are held to the plain versions' one-pass
+emulation (``one_pass=True``; phases 3, 4, 18, 19, 21, 25) and their first
+low step tightly (phases 3, 4); the all-fp32 modes to the plain versions.
+
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
 
@@ -54,8 +61,9 @@ repository root with ``python3 chip_smoke.py``; it needs one CUDA device
 and exits non-zero without one.  ``python3 chip_smoke.py --time-cheb``
 runs only phases 12 and 17's timing of K4 and K5 (``time_cheb``) and
 ``--time-k6`` only phase 17's timing of K6 (``time_k6``),
-``--time-polar`` only K1's and K7's timing (``time_polar``) and
-``--codegen`` only phase 2's registers, spills and HMMA counts
+``--time-polar`` only K1's and K7's timing (``time_polar``),
+``--time-deploy`` only phase 9's classical deploy point (``time_deploy``)
+and ``--codegen`` only phase 2's registers, spills and HMMA counts
 (``codegen``), to pair two trees; ``python3 chip_smoke.py --profile-k2``
 only phase 25, the subtraction profile of K2 by its ``ablate`` variants
 (``k2_profile``); ``--parallel`` only phase 26 (``parallel_only``);
@@ -172,39 +180,76 @@ CHEB_FWD_BODY = ("one thread-block cluster of P / 16 CTAs per matrix, bands in s
                  "memory, 3xTF32 mma.sync products (tc_product.cuh)")
 # K1's and K7's body (csrc/polar_cta.cuh), named in the kernels summary
 POLAR_BODY = ("one CTA per matrix or instance (a cluster of two at P = 128), the planes in "
-              "shared memory, each whole product a 3xTF32 mma.sync product of the CTA "
-              "(polar_cta.cuh); bf16_store's low steps in fp32 FMAs")
+              "shared memory, each whole product a mma.sync product of the CTA "
+              "(polar_cta.cuh): 3xTF32 for hi steps and the closing product, one-pass bf16 "
+              "for K1's low steps")
 POLAR_REPS = 10  # timed calls of K1 per mode (--time-polar; the median is reported)
 K7_REPS = 3  # timed calls of K7 per projection depth (--time-polar)
+DEPLOY_REPS = 5  # timed calls of the classical deploy point (--time-deploy)
 
 # Tolerances, with their reasons:
-# - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py).
-K1_EIGH_TOL = {"accurate": 2e-4, "fast": 5e-4, "fast+polish": 5e-4}
-# - K1 vs its plain version: both fp32; the sums run in another order,
-#   which the quintic's large first-step coefficients amplify ~10x
-#   (measured 5e-6 on an H100).
+# - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py) for the
+#   all-fp32 accurate mode; the fast modes' low steps run one-pass (bf16
+#   operands) on the card, held to the JAX package's ceiling for the fast
+#   tier's hardware noise, 8e-3 (tests/test_polar.py, "the fast mode's
+#   hardware noise floor (~3e-3)"; K1_BF16_EIGH_TOL).
+K1_EIGH_TOL = {"accurate": 2e-4, "fast": 8e-3, "fast+polish": 8e-3}
+# - K1 vs its plain version, accurate mode: both fp32; the sums run in
+#   another order, which the quintic's large first-step coefficients
+#   amplify ~10x (measured 5e-6 on an H100).
 K1_PLAIN_TOL = 1e-4
-# - K2 vs its plain version, median / max per-instance relative error of phi
-#   after 100 iterations: fp32 sums in another order, carried through 100
-#   iterations and the H-projection's bisection decisions (measured on an
-#   H100: fused_fast 2.3e-6 / 3.6e-6, fused_exact 4.8e-5 / 2.3e-4).
+# - The one-pass tier vs its emulation (the plain version with one_pass:
+#   the same operand roundings, fp32 sums in the plain version's order).
+#   The first low step (a one-step schedule; for K2 the second iteration's
+#   phi, the first that reads a product): every term is exact and only the
+#   order of the sums differs, so the median instance within 1e-5, where a
+#   kernel that drops or misplaces a rounding moves every instance (the
+#   fp32 tier's median sits 7.4e-4 (K1) and 2.7e-5 (K2) away).  The step
+#   chains its products through rounded intermediates (X^2 into X^4, Y
+#   into X Y, X into the closing product), where a sum in another order
+#   flips a rounding now and then; the worst instance is held to 1e-3, an
+#   order below the whole solve's spread (measured on an H100: K1 median
+#   1.4e-7, max 4.9e-5 at B = 511; K2 2.5e-7 / 4.0e-5 at n = 100, B =
+#   2048, and 2.6e-7 / 1.0e-4 at n = 119, B = 256).
+FIRST_STEP_TOL = {"median": 1e-5, "max": 1e-3}
+# - K1 fast (with or without bf16 storage) vs its emulation, per matrix: a
+#   sum in another order re-rolls the eigenvalues within the one-pass
+#   noise band, so two valid orders sit as far apart as the fast tier sits
+#   from eigh (measured median 2.2e-3 / 3.4e-3 without / with bf16
+#   storage); the median held to the 8e-3 ceiling the JAX package accepts
+#   for the MXU's order (which nothing reproduces), the worst matrix to
+#   1e-2 (one flip carried by the later steps is ~3e-3).
+K1_ONE_PASS_TOL = {"median": 8e-3, "max": 1e-2}
+# - K2 fused_exact vs its plain version, median / max per-instance relative
+#   error of phi after 100 iterations: all fp32, sums in another order,
+#   carried through 100 iterations and the H-projection's bisection
+#   decisions (measured on an H100: 4.8e-5 / 2.3e-4).
 K2_PLAIN_TOL = {"median": 1e-4, "max": 2e-3}
+# - K2 fused_fast, K3 and K2's unfolded carry (one-pass tf32 low and
+#   closing products) vs their emulation, median / max per-instance relative
+#   error of phi after 100 iterations.  Two valid summation orders re-roll
+#   the tf32 roundings: measured on an H100 median 2.8e-3, max 9.9e-3 at n =
+#   100 and 1.14e-2 at n = 119, and two layouts' emulations 9.4e-3 apart;
+#   a kernel on the MXU's bf16 tier instead sat at median 2.2e-2, max
+#   7.9e-2.  The limits lie between (2x the tf32 max); the JAX package's
+#   band for "the fast mode's phi accuracy floor" (tests/test_fused_fast.py,
+#   0.05) is wider.
+K2_ONE_PASS_TOL = {"median": 1e-2, "max": 2e-2}
 # - phi NMSE (scale-invariant, float64) vs the committed eigh golden.
 EXACT_NMSE_TOL = 1e-5
 POLAR_NMSE_TOL = 1e-5
 EIGH_NMSE_TOL = 1e-5
 FAST_NMSE_TOL = 0.2  # detection-grade contract; reference band ~0.06
+FAST_NMSE_FP32 = 3.09e-2  # the fp32 tier's on an H100 (PERF.md)
+FAST_NMSE_TPU = 0.0608  # BENCH_r05.json's phi_nmse_vs_eigh, one-pass bf16 on the MXU
 K7_NMSE_TOL = 1e-5  # the phi-faithful gate that polar and fused_exact pass
-# - K3 and K2's unfolded carry vs their plain versions, median / max
-#   per-instance relative error of phi after 100 iterations: ~10x the
-#   measured 2.58e-6 / 3.81e-6 (K3) and 2.68e-6 / 4.04e-6 (unfolded K2) on
-#   an H100.
-HATCH_PLAIN_TOL = {"median": 3e-5, "max": 5e-5}
 # - K3 / K2's unfolded carry vs each other and vs the folded K2, 15
-#   iterations, max per-instance relative error: the JAX package's bands
-#   (tests/test_fused_fast.py: lean vs lists 5e-5, folded vs unfolded 1e-3).
-LISTS_VS_LEAN_TOL = 5e-5
-FOLD_VS_UNFOLDED_TOL = 1e-3
+#   iterations, median / max per-instance relative error: K2_ONE_PASS_TOL.
+#   In fp32 the JAX package's bands held them (tests/test_fused_fast.py: lean vs
+#   lists 5e-5, folded vs unfolded 1e-3); with one-pass products two
+#   layouts of the same arithmetic sit as far apart as two summation
+#   orders do (measured on an H100: their emulations 7.6e-3 and 9.4e-3
+#   apart at the max, the kernels 7.9e-3 and 7.0e-3).
 # - K7 vs its plain version, median / max per-instance relative error of phi
 #   after 100 iterations: fp32 sums in another order, amplified by the
 #   quintic's large first-step coefficients (~10x the measured median 8.28e-5
@@ -213,19 +258,17 @@ FOLD_VS_UNFOLDED_TOL = 1e-3
 K7_PLAIN_TOL = {"median": 8e-4, "max": 2e-3}
 K7_POLAR_TOL = 5e-4
 # - K1 with bf16 iterate storage: vs eigh, tests/test_polar.py's bound.
-#   Vs its plain version, per-matrix relative error: where the fp32 sums of
-#   a product run in another order, one bf16 rounding can flip (2^-8
-#   relative) and the later low steps carry it, so a few matrices sit
-#   ~3e-3 away (max; measured on an H100 at B = 512: 4.25e-3 with 494
-#   matrices bitwise equal at hi_steps 0, 2.92e-3 with none bitwise at 1,
-#   where the fp32 polish step reorders every sum); the median matrix
-#   agrees to fp32 noise (measured 0 / 9.7e-8), far below one flip.
-#   A kernel that skips or misplaces the rounding sits ~3e-3-5e-3 from the
-#   plain version on every matrix, so the median gate fails it, and the
-#   gate against the fp32 store requires the rounding to show (measured
-#   median 4.30e-3 / 3.06e-3 at hi_steps 0 / 1).
+#   Vs its emulation (its low steps' operands are bf16-valued, so the
+#   kernel's terms are the plain version's exact products, summed in
+#   another order): K1_ONE_PASS_TOL.  The median was held to 1e-5 while the
+#   kernel summed in the plain version's k order with fp32 FMAs; on the
+#   tensor cores the order differs, one bf16 rounding flips (2^-8 relative)
+#   and the later low steps carry it (measured median 3.4e-3).  The tight
+#   check of where bf16_store rounds is its first low step (phase 3,
+#   FIRST_STEP_TOL; measured median 9.5e-8, max 7.2e-5).  The gate
+#   against the fp32 store requires the rounding to show (measured median
+#   4.30e-3 / 3.06e-3 at hi_steps 0 / 1 with the FMA sums).
 K1_BF16_EIGH_TOL = 8e-3
-K1_BF16_PLAIN_TOL = {"median": 1e-5, "max": 1e-2}
 K1_BF16_VS_FP32_MIN = 1e-3  # median per-matrix distance from the fp32 store
 # - K4 vs its plain version, max per-matrix relative error: both fp32, the
 #   sums in another order through 48 dependent Clenshaw steps; ~10x the
@@ -310,6 +353,15 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = a.reshape(a.shape[0], -1)
     b = b.reshape(b.shape[0], -1)
     return torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)
+
+
+def k2_one_pass_gate(e: torch.Tensor):
+    """(passed, text) of per-instance errors of K2 / K3 against their
+    one-pass emulation, held to K2_ONE_PASS_TOL."""
+    med, mx = float(e.median()), float(e.max())
+    tol = K2_ONE_PASS_TOL
+    return (med < tol["median"] and mx < tol["max"],
+            f"median {med:.3e} (tol {tol['median']:g}), max {mx:.3e} (tol {tol['max']:g})")
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -502,7 +554,8 @@ def device_profile(fn):
 def k2_profile(dev, tag: str) -> dict:
     """runs/profile_lean.py's subtraction profile of K2's unfolded lean
     kernel on the card, and each ablate variant held against its plain
-    version (the same arithmetic, so the unfolded carry's limits).  The
+    one-pass emulation (the same arithmetic, so the unfolded carry's
+    limits).  The
     norm, zupd and finals variants change the values that flow on, so their
     marginals can read negative (RESULTS.md 3.6): they are reported as
     read, not subtracted into a total."""
@@ -515,17 +568,15 @@ def k2_profile(dev, tag: str) -> dict:
     y, b, s = to_dev(dev, *make_anchor_batch(B_ABLATE_CHECK, "redemod", seed=0))
     for ablate in kf.ABLATE[1:]:
         pk = kf.admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, ablate=ablate, **kw)
-        pp = kf.admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, ablate=ablate, **kw)
+        pp = kf.admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, ablate=ablate,
+                                            one_pass=True, **kw)
         torch.cuda.synchronize()
         check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
               f"K2 ablate={ablate}: non-finite phi")
-        e = rel_err(pk, pp)
-        med, mx = float(e.median()), float(e.max())
-        log(f"[25 K2 ablate={ablate}] B={B_ABLATE_CHECK} x {ITERS} iters: kernel vs plain "
-            f"per-instance rel err median {med:.3e} (tol {HATCH_PLAIN_TOL['median']:g}), max "
-            f"{mx:.3e} (tol {HATCH_PLAIN_TOL['max']:g})")
-        check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
-              f"K2 ablate={ablate} disagrees with its plain version")
+        ok, said = k2_one_pass_gate(rel_err(pk, pp))
+        log(f"[25 K2 ablate={ablate}] B={B_ABLATE_CHECK} x {ITERS} iters: kernel vs one-pass "
+            f"emulation per-instance rel err {said}")
+        check(ok, f"K2 ablate={ablate} disagrees with its plain version")
 
     y, b, s = to_dev(dev, *make_anchor_batch(B_PROFILE, "redemod", seed=0))
 
@@ -616,8 +667,9 @@ SASS_KEYS = {"cheb_filter_kernel": "K4/K5", "cheb_bwd_kernel": "K6", "fused_tc_k
 
 
 def sass_counts() -> dict:
-    """{mangled name: (key, HMMA, LDL, STL)} of the built library's kernels
-    named in SASS_KEYS, from ``cuobjdump -sass``."""
+    """{mangled name: (key, HMMA, LDL, STL, bf16 HMMA)} of the built
+    library's kernels named in SASS_KEYS, from ``cuobjdump -sass`` (the
+    bf16 HMMA: K1's one-pass m16n8k16 products; the rest are TF32)."""
     import re
     import shutil
 
@@ -631,7 +683,8 @@ def sass_counts() -> dict:
         name = block.split("\n", 1)[0].strip()
         key = next((v for k, v in SASS_KEYS.items() if k in name), None)
         if key is not None:
-            found[name] = (key, block.count("HMMA"), block.count("LDL"), block.count("STL"))
+            found[name] = (key, block.count("HMMA"), block.count("LDL"), block.count("STL"),
+                           len(re.findall(r"HMMA\.\S*BF16", block)))
     return found
 
 
@@ -666,11 +719,38 @@ def demangle(name: str) -> str:
     return out.stdout.strip() or name
 
 
-def tf32x3_bound(flops: float, nbytes: float):
+def tf32x3_bound(flops: float, nbytes: float, one_pass_flops: float = 0.0,
+                 one_pass_peak: float = PEAK_TF32):
     """(bound ms, what bounds it) of fp32-faithful products run in 3xTF32
-    on the tensor cores: three TF32 products per useful one."""
-    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    on the tensor cores (three TF32 products per useful one) beside
+    ``one_pass_flops`` of one-pass products at ``one_pass_peak`` (TF32's
+    for K2/K3, bf16's for K1)."""
+    t_ops = 3 * flops / PEAK_TF32 + one_pass_flops / one_pass_peak
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fused_bounds(B: int, kw: dict, iters: int = ITERS):
+    """(bound ms, what bounds it, 3xTF32 bound ms, fp32 SIMT bound ms) of a
+    fused solve with the kernel options ``kw`` at B x iters: its one-pass
+    products (one_pass_products) at TF32's rate, the rest in 3xTF32."""
+    from admmnet_tpu_torch.kernels.fused_admm_fast import full_schedule, one_pass_products
+
+    sched = full_schedule(kw["schedule"], kw["hi_steps"], kw.get("all_hi", False))
+    total = solve_flops(B * iters, len(sched))
+    low = one_pass_products(len(sched), kw["hi_steps"], kw.get("all_hi", False),
+                            kw["final_hi"])
+    low_flops = B * iters * low * 2.0 * 101**3
+    nbytes = solve_bytes(B)
+    b, by = tf32x3_bound(total - low_flops, nbytes, low_flops)
+    return b, by, tf32x3_bound(total, nbytes)[0], bound(total, nbytes)[0]
+
+
+def polar_fast_bound(B: int, nsteps: int = 6, m: int = 101):
+    """(bound ms, what bounds it) of K1 fast with nsteps low steps: 9 one-pass
+    products a step at bf16's rate, 3 closing ones in 3xTF32."""
+    low, closing = B * 9 * nsteps * 2.0 * m**3, B * 3 * 2.0 * m**3
+    return tf32x3_bound(closing, B * 2 * m * m * 8, low, PEAK_BF16)
 
 
 def solve_bytes(B: int, n: int = 100) -> float:
@@ -1034,24 +1114,28 @@ class Smoke:
         """The products of K1, K2/K3, K4/K5, K6 and K7 reach the tensor cores:
         HMMA instructions in the SASS of every instantiation."""
         found = sass_counts()
-        for name, (key, hmma, ldl, stl) in sorted(found.items()):
-            log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL "
-                f"(local memory)")
-        hmma = {v: [h for k, h, _, _ in found.values() if k == v] for v in SASS_KEYS.values()}
+        for name, (key, hmma, ldl, stl, bf16) in sorted(found.items()):
+            log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA ({bf16} bf16), {ldl} LDL / "
+                f"{stl} STL (local memory)")
+        hmma = {v: [h for k, h, _, _, _ in found.values() if k == v] for v in SASS_KEYS.values()}
         # K4/K5 and K6 at P = 112, 128; K2/K3: 5 instantiations and 7 ablate
         # variants at each of P = 112, 128; K1 with and without bf16_store
         # and K7 at each of P = 112, 128
         check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3", "K1", "K7")] == [2, 2, 24, 4, 2]
               and min(sum(hmma.values(), [])) > 0,
               "a tensor-core kernel's SASS has no HMMA instruction")
+        # K1's low steps run bf16 m16n8k16 products; K7 is all fp32
+        check(all(v[4] > 0 for v in found.values() if v[0] == "K1")
+              and all(v[4] == 0 for v in found.values() if v[0] != "K1"),
+              "K1's one-pass products are not bf16 HMMA, or another kernel has some")
 
     # 3 -------------------------------------------------------------------
     def k1_vs_plain(self):
-        from admmnet_tpu_torch.kernels.polar import (
-            psd_project_polar_kernel,
-            psd_project_polar_plain,
-        )
-        from admmnet_tpu_torch.ops.projections import psd_project_eigh
+        """K1 in every mode: accurate (all fp32) vs its plain version, the
+        fast modes (one-pass low steps) vs their emulation; the first low
+        step through the launcher; the zero matrix; the P = 128 path."""
+        from admmnet_tpu_torch.kernels import polar as kp
+        from admmnet_tpu_torch.ops.projections import POLAR_BF16_SCHEDULE, psd_project_eigh
 
         rng = np.random.default_rng(0)
         M = random_hermitian(rng, B_K1, 101, self.dev)
@@ -1060,36 +1144,73 @@ class Smoke:
         worst_abs = 0.0
         for label, mode, hs in (("accurate", "accurate", None), ("fast", "fast", None),
                                 ("fast+polish", "fast", 1)):
-            Pk = psd_project_polar_kernel(M, mode=mode, hi_steps=hs)
-            Pp = psd_project_polar_plain(M, mode=mode, hi_steps=hs)
+            one_pass = mode == "fast"
+            Pk = kp.psd_project_polar_kernel(M, mode=mode, hi_steps=hs)
+            Pp = kp.psd_project_polar_plain(M, mode=mode, hi_steps=hs, one_pass=one_pass)
             torch.cuda.synchronize()
             check(bool(torch.all(Pk[-1] == 0)), f"K1 {label}: zero matrix not zero")
-            e_plain = float(rel_err(Pk, Pp)[:-1].max())
+            e = rel_err(Pk, Pp)[:-1]
+            med, mx = float(e.median()), float(e.max())
             e_eigh = float(rel_err(Pk[:-1], Pe).max())
             e_plain_eigh = float(rel_err(Pp[:-1], Pe).max())
             worst_abs = max(worst_abs, float((Pk - Pp).abs().max()))
-            log(f"[3 K1 {label}] B={B_K1} m=101: kernel vs plain max rel "
-                f"{e_plain:.3e} (tol {K1_PLAIN_TOL:g}); kernel vs eigh {e_eigh:.3e}, "
+            if one_pass:
+                tol = K1_ONE_PASS_TOL
+                ok = med < tol["median"] and mx < tol["max"]
+                said = (f"kernel vs one-pass emulation per-matrix rel err median {med:.3e} "
+                        f"(tol {tol['median']:g}), max {mx:.3e} (tol {tol['max']:g})")
+            else:
+                ok = mx < K1_PLAIN_TOL
+                said = f"kernel vs plain max rel {mx:.3e} (tol {K1_PLAIN_TOL:g})"
+            log(f"[3 K1 {label}] B={B_K1} m=101: {said}; kernel vs eigh {e_eigh:.3e}, "
                 f"plain vs eigh {e_plain_eigh:.3e} (tol {K1_EIGH_TOL[label]:g})")
-            check(e_plain < K1_PLAIN_TOL, f"K1 {label} disagrees with its plain version")
+            check(ok, f"K1 {label} disagrees with its plain version")
             check(e_eigh < K1_EIGH_TOL[label], f"K1 {label} too far from eigh")
+        # the first low step: a one-step schedule through the launcher
+        one = (POLAR_BF16_SCHEDULE[0],)
+        for bf16_store in (False, True):
+            Pr, Pi = kp.launch_schedule(M[:-1], one, 0, bf16_store)
+            Pk = torch.complex(Pr[:, :101, :101], Pi[:, :101, :101])
+            e = rel_err(Pk, kp.polar_plain_schedule(M[:-1], one, 0, bf16_store, True))
+            d32 = float(rel_err(kp.polar_plain_schedule(M[:-1], one, 0, bf16_store, False),
+                                kp.polar_plain_schedule(M[:-1], one, 0, bf16_store, True))
+                        .median())
+            med, mx = float(e.median()), float(e.max())
+            log(f"[3 K1 first low step bf16_store={bf16_store}] B={B_K1 - 1} m=101, one step: "
+                f"kernel vs emulation per-matrix rel err median {med:.3e} (tol "
+                f"{FIRST_STEP_TOL['median']:g}), max {mx:.3e} (tol {FIRST_STEP_TOL['max']:g}); "
+                f"the fp32 plain version's median {d32:.3e}")
+            check(med < FIRST_STEP_TOL["median"] and mx < FIRST_STEP_TOL["max"],
+                  f"K1's first low step (bf16_store={bf16_store}) disagrees with its emulation")
         # the P = 128 plane path (113 <= m <= 128)
         M2 = random_hermitian(rng, 64, 120, self.dev)
-        Pk = psd_project_polar_kernel(M2, mode="accurate")
-        e128 = float(rel_err(Pk, psd_project_eigh(M2)).max())
-        e128p = float(rel_err(Pk, psd_project_polar_plain(M2)).max())
+        Pe2 = psd_project_eigh(M2)
+        Pk = kp.psd_project_polar_kernel(M2, mode="accurate")
+        e128 = float(rel_err(Pk, Pe2).max())
+        e128p = float(rel_err(Pk, kp.psd_project_polar_plain(M2)).max())
         log(f"[3 K1 P=128] B=64 m=120 accurate: kernel vs eigh {e128:.3e} "
             f"(tol {K1_EIGH_TOL['accurate']:g}), vs plain {e128p:.3e} (tol {K1_PLAIN_TOL:g})")
         check(e128 < K1_EIGH_TOL["accurate"] and e128p < K1_PLAIN_TOL, "K1 P=128 path")
+        Pk = kp.psd_project_polar_kernel(M2, mode="fast")
+        e = rel_err(Pk, kp.psd_project_polar_plain(M2, "fast", one_pass=True))
+        f128 = float(rel_err(Pk, Pe2).max())
+        log(f"[3 K1 P=128] B=64 m=120 fast: kernel vs eigh {f128:.3e} (tol "
+            f"{K1_EIGH_TOL['fast']:g}), vs emulation median {float(e.median()):.3e}, max "
+            f"{float(e.max()):.3e}")
+        check(f128 < K1_EIGH_TOL["fast"] and float(e.median()) < K1_ONE_PASS_TOL["median"]
+              and float(e.max()) < K1_ONE_PASS_TOL["max"], "K1 P=128 fast path")
         self.kernels["K1"] = {"max_abs_err": worst_abs}
 
     # 4 -------------------------------------------------------------------
     def k2_vs_plain(self):
+        """K2 fused_fast (one-pass) vs its emulation and fused_exact (all
+        fp32) vs its plain version, at n = 100 and 119; the first low step."""
         from admmnet_tpu_torch.data.anchor import make_anchor_batch
         from admmnet_tpu_torch.kernels.fused_admm_fast import (
             admm_solve_fused_fast,
             admm_solve_fused_fast_plain,
         )
+        from admmnet_tpu_torch.ops.projections import POLAR_BF16_SCHED2
         from admmnet_tpu_torch.solver.admm import fused_kernel_options
 
         y, b, s = make_anchor_batch(B_SOLVE, "redemod", seed=0)
@@ -1101,21 +1222,47 @@ class Smoke:
                                      ("fused_fast", self.prod, B_P128, self.anchor128),
                                      ("fused_exact", self.exact, B_P128, self.anchor128)):
             kw = fused_kernel_options(opts)
+            one_pass = label == "fused_fast"
             yy, bb, ss = (x[:B] for x in rows)
             n = yy.shape[1]
             pk = admm_solve_fused_fast(yy, bb, ss, ITERS, opts.rho, 1.0, **kw)
-            pp = admm_solve_fused_fast_plain(yy, bb, ss, ITERS, opts.rho, 1.0, **kw)
+            pp = admm_solve_fused_fast_plain(yy, bb, ss, ITERS, opts.rho, 1.0,
+                                             one_pass=one_pass, **kw)
             torch.cuda.synchronize()
             check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
                   f"K2 {label} n={n}: non-finite phi")
             e = rel_err(pk, pp)
             med, mx = float(e.median()), float(e.max())
             worst_abs = max(worst_abs, float((pk - pp).abs().max()))
-            log(f"[4 K2 {label}] B={B} n={n} x {ITERS} iters: kernel vs plain per-instance "
-                f"rel err median {med:.3e} (tol {K2_PLAIN_TOL['median']:g}), "
-                f"max {mx:.3e} (tol {K2_PLAIN_TOL['max']:g})")
-            check(med < K2_PLAIN_TOL["median"] and mx < K2_PLAIN_TOL["max"],
-                  f"K2 {label} n={n} disagrees with its plain version")
+            if one_pass:
+                ok, said = k2_one_pass_gate(e)
+                said = f"kernel vs one-pass emulation per-instance rel err {said}"
+            else:
+                ok = med < K2_PLAIN_TOL["median"] and mx < K2_PLAIN_TOL["max"]
+                said = (f"kernel vs plain per-instance rel err median {med:.3e} (tol "
+                        f"{K2_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
+                        f"{K2_PLAIN_TOL['max']:g})")
+            log(f"[4 K2 {label}] B={B} n={n} x {ITERS} iters: {said}")
+            check(ok, f"K2 {label} n={n} disagrees with its plain version")
+        # the first low step: the unfolded lean kernel, one schedule step,
+        # final_hi off; the second iteration's phi is the first that reads
+        # a product
+        kw = dict(hi_steps=0, outer_iters=4, inner_iters=3, schedule=(POLAR_BF16_SCHED2[0],),
+                  final_hi=False, layout="lean", fold_diag=False)
+        for rows in (self.anchor, self.anchor128):
+            n = rows[0].shape[1]
+            pk = admm_solve_fused_fast(*rows, 2, 1.0, 1.0, **kw)
+            pe = admm_solve_fused_fast_plain(*rows, 2, 1.0, 1.0, one_pass=True, **kw)
+            e = rel_err(pk, pe)
+            d32 = float(rel_err(admm_solve_fused_fast_plain(*rows, 2, 1.0, 1.0, **kw), pe)
+                        .median())
+            med, mx = float(e.median()), float(e.max())
+            log(f"[4 K2 first low step] B={len(pk)} n={n}, one step, 2 iterations: kernel vs "
+                f"emulation per-instance rel err median {med:.3e} (tol "
+                f"{FIRST_STEP_TOL['median']:g}), max {mx:.3e} (tol {FIRST_STEP_TOL['max']:g}); "
+                f"the fp32 plain version's median {d32:.3e}")
+            check(med < FIRST_STEP_TOL["median"] and mx < FIRST_STEP_TOL["max"],
+                  f"K2's first low step n={n} disagrees with its emulation")
         self.kernels["K2"] = {"max_abs_err": worst_abs}
 
     # 5 -------------------------------------------------------------------
@@ -1141,8 +1288,10 @@ class Smoke:
             secs = time.time() - t0
             check(bool(np.all(np.isfinite(phi.view(np.float32)))), f"{label}: non-finite phi")
             nmse = scale_invariant_nmse(phi, golden[:B])
+            ref = (f"; the fp32 tier's {FAST_NMSE_FP32:g}, the TPU record's (one-pass bf16) "
+                   f"{FAST_NMSE_TPU:g}" if label == "fused_fast" else "")
             log(f"[5 golden {label}] B={B} x {ITERS}: phi NMSE vs phi_eigh_2048 "
-                f"{nmse:.3e} (tol {tol:g}) [{secs:.1f} s]")
+                f"{nmse:.3e} (tol {tol:g}{ref}) [{secs:.1f} s]")
             check(nmse <= tol, f"{label}: phi NMSE {nmse:.3e} > {tol:g}")
             if label == "fused_fast":
                 self.phi_fast = phi
@@ -1256,14 +1405,12 @@ class Smoke:
         k2 = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
         k2p = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
         n_ii = B_TIME_K2 * ITERS
-        flops = solve_flops(n_ii, len(kw["schedule"]))
-        k2_bound, k2_by = tf32x3_bound(flops, solve_bytes(B_TIME_K2))
-        k2_fp32, _ = bound(flops, solve_bytes(B_TIME_K2))
+        k2_bound, k2_by, k2_x3, k2_fp32 = fused_bounds(B_TIME_K2, kw)
         log(f"[9 time K2 fused_fast] B={B_TIME_K2} x {ITERS}: kernel {k2:.1f} ms "
             f"({n_ii / k2 * 1e3:.0f} inst-iter/s), plain {k2p:.1f} ms "
-            f"({n_ii / k2p * 1e3:.0f} inst-iter/s); 3xTF32 tensor-core bound {k2_bound:.1f} ms "
-            f"({k2_by}; {k2_bound / k2:.1%} of it), fp32 SIMT bound {k2_fp32:.1f} ms "
-            f"({k2_fp32 / k2:.1%} of it) {tag}")
+            f"({n_ii / k2p * 1e3:.0f} inst-iter/s); one-pass (TF32) bound {k2_bound:.1f} ms "
+            f"({k2_by}; {k2_bound / k2:.1%} of it), 3xTF32 bound {k2_x3:.1f} ms "
+            f"({k2_x3 / k2:.1%}), fp32 SIMT bound {k2_fp32:.1f} ms ({k2_fp32 / k2:.1%}) {tag}")
         self.kernels["K2"].update(ms=k2, plain_ms=k2p, bound_ms=k2_bound, bound_by=k2_by,
                                   library_ms=None)
 
@@ -1272,10 +1419,16 @@ class Smoke:
             k1 = cuda_ms(lambda: psd_project_polar_kernel(M, mode=mode), reps=3)
             k1p = cuda_ms(lambda: psd_project_polar_plain(M, mode=mode), reps=3)
             k1_bound, k1_by, k1_fp32 = polar_bounds(B_TIME_K1, 7 if mode == "accurate" else 6)
+            if mode == "fast":
+                k1_x3 = k1_bound
+                k1_bound, k1_by = polar_fast_bound(B_TIME_K1)
             log(f"[9 time K1 {mode}] B={B_TIME_K1} m=101: kernel {k1:.2f} ms, "
-                f"plain {k1p:.2f} ms per call; 3xTF32 tensor-core bound {k1_bound:.2f} ms "
-                f"({k1_by}; {k1_bound / k1:.1%} of it), fp32 SIMT bound {k1_fp32:.2f} ms "
-                f"({k1_fp32 / k1:.1%} of it) {tag}")
+                f"plain {k1p:.2f} ms per call; "
+                + (f"one-pass (bf16) bound {k1_bound:.3f} ms ({k1_by}; {k1_bound / k1:.1%} of "
+                   f"it), all-3xTF32 bound {k1_x3:.2f} ms {tag}" if mode == "fast" else
+                   f"3xTF32 tensor-core bound {k1_bound:.2f} ms ({k1_by}; "
+                   f"{k1_bound / k1:.1%} of it), fp32 SIMT bound {k1_fp32:.2f} ms "
+                   f"({k1_fp32 / k1:.1%} of it) {tag}"))
             if mode == "accurate":
                 self.kernels["K1"].update(ms=k1, plain_ms=k1p, bound_ms=k1_bound,
                                           bound_by=k1_by, library_ms=None, body=POLAR_BODY,
@@ -1760,19 +1913,17 @@ class Smoke:
             for key, layout in (("K3", "lists"), ("K2", "lean")):
                 kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
                 pk = admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw)
-                pp = admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw)
+                pp = admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, one_pass=True, **kw)
                 torch.cuda.synchronize()
                 check(bool(torch.all(torch.isfinite(torch.view_as_real(pk)))),
                       f"{key} {layout} n={n}: non-finite phi")
-                e = rel_err(pk, pp)
-                med, mx = float(e.median()), float(e.max())
+                ok, said = k2_one_pass_gate(rel_err(pk, pp))
                 worst = float((pk - pp).abs().max())
                 self.kernels[key]["max_abs_err"] = max(self.kernels[key]["max_abs_err"], worst)
                 log(f"[18 {key} {layout}, unfolded] B={B} n={n} x {ITERS} iters, sched2, 4/3 "
-                    f"cold root, final_hi off: kernel vs plain per-instance rel err median "
-                    f"{med:.3e} (tol {HATCH_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
-                    f"{HATCH_PLAIN_TOL['max']:g})")
-                check(med < HATCH_PLAIN_TOL["median"] and mx < HATCH_PLAIN_TOL["max"],
+                    f"cold root, final_hi off: kernel vs one-pass emulation per-instance rel "
+                    f"err {said}")
+                check(ok,
                       f"{key} ({layout}, unfolded) n={n} disagrees with its plain version")
 
     # 19 ------------------------------------------------------------------
@@ -1825,15 +1976,13 @@ class Smoke:
                 for name, kw in (("lists", dict(HATCH, fused_layout="lists")),
                                  ("lean", HATCH),
                                  ("folded", dict(HATCH, fused_fold_diag=True)))}
-        e_ll = float(rel_err(phis["lists"], phis["lean"]).max())
-        e_fold = float(rel_err(phis["folded"], phis["lean"]).max())
-        e_lf = float(rel_err(phis["lists"], phis["folded"]).max())
-        log(f"[19 hatch layouts] B={B_SOLVE} x {it} iters, max per-instance rel err: K3 vs "
-            f"unfolded K2 {e_ll:.3e} (tol {LISTS_VS_LEAN_TOL:g}); folded vs unfolded K2 "
-            f"{e_fold:.3e}, K3 vs folded K2 {e_lf:.3e} (tol {FOLD_VS_UNFOLDED_TOL:g})")
-        check(e_ll < LISTS_VS_LEAN_TOL, "K3 vs the unfolded K2")
-        check(e_fold < FOLD_VS_UNFOLDED_TOL and e_lf < FOLD_VS_UNFOLDED_TOL,
-              "the folded K2 vs the unfolded layouts")
+        ok_ll, e_ll = k2_one_pass_gate(rel_err(phis["lists"], phis["lean"]))
+        ok_fold, e_fold = k2_one_pass_gate(rel_err(phis["folded"], phis["lean"]))
+        ok_lf, e_lf = k2_one_pass_gate(rel_err(phis["lists"], phis["folded"]))
+        log(f"[19 hatch layouts] B={B_SOLVE} x {it} iters, per-instance rel err: K3 vs "
+            f"unfolded K2 {e_ll}; folded vs unfolded K2 {e_fold}; K3 vs folded K2 {e_lf}")
+        check(ok_ll, "K3 vs the unfolded K2")
+        check(ok_fold and ok_lf, "the folded K2 vs the unfolded layouts")
 
     # 20 ------------------------------------------------------------------
     def k7_path(self):
@@ -1898,7 +2047,7 @@ class Smoke:
         Pe = psd_project_eigh(M)
         for hs in (0, 1):
             Pk = psd_project_polar_kernel(M, mode="fast", hi_steps=hs, bf16_store=True)
-            Pp = psd_project_polar_plain(M, "fast", hs, bf16_store=True)
+            Pp = psd_project_polar_plain(M, "fast", hs, bf16_store=True, one_pass=True)
             P32 = psd_project_polar_kernel(M, mode="fast", hi_steps=hs)
             torch.cuda.synchronize()
             e_plain = rel_err(Pk, Pp)
@@ -1906,13 +2055,13 @@ class Smoke:
             e_eigh = float(rel_err(Pk, Pe).max())
             d32 = float(rel_err(Pk, P32).median())
             log(f"[21 K1 bf16_store hi_steps={hs}] B={B_K1} m=101: kernel vs eigh {e_eigh:.3e} "
-                f"(tol {K1_BF16_EIGH_TOL:g}); vs plain per-matrix rel err median {med:.3e} "
-                f"(tol {K1_BF16_PLAIN_TOL['median']:g}), max {mx:.3e} (tol "
-                f"{K1_BF16_PLAIN_TOL['max']:g}), bitwise equal {int((e_plain == 0).sum())}/"
+                f"(tol {K1_BF16_EIGH_TOL:g}); vs its emulation per-matrix rel err median "
+                f"{med:.3e} (tol {K1_ONE_PASS_TOL['median']:g}), max {mx:.3e} (tol "
+                f"{K1_ONE_PASS_TOL['max']:g}), bitwise equal {int((e_plain == 0).sum())}/"
                 f"{B_K1}; vs the fp32 store median {d32:.3e} (must be > "
                 f"{K1_BF16_VS_FP32_MIN:g})")
             check(e_eigh < K1_BF16_EIGH_TOL, "K1 bf16_store too far from eigh")
-            check(med < K1_BF16_PLAIN_TOL["median"] and mx < K1_BF16_PLAIN_TOL["max"],
+            check(med < K1_ONE_PASS_TOL["median"] and mx < K1_ONE_PASS_TOL["max"],
                   "K1 bf16_store disagrees with its plain version")
             check(d32 > K1_BF16_VS_FP32_MIN, "K1 bf16_store: no bf16 rounding shows")
         y, b, s = (x[:512] for x in self.anchor)
@@ -1964,12 +2113,11 @@ class Smoke:
             kw = fused_kernel_options(ADMMOptions(fused_layout=layout, **HATCH))
             ms = cuda_ms(lambda: admm_solve_fused_fast(y, b, s, ITERS, 1.0, 1.0, **kw))
             pms = cuda_ms(lambda: admm_solve_fused_fast_plain(y, b, s, ITERS, 1.0, 1.0, **kw))
-            flops = solve_flops(n_ii, len(kw["schedule"]))
-            bms, by = tf32x3_bound(flops, solve_bytes(B_TIME_K2))
-            fp32_ms, _ = bound(flops, solve_bytes(B_TIME_K2))
+            bms, by, x3_ms, fp32_ms = fused_bounds(B_TIME_K2, kw)
             log(f"[23 time {key} {layout}, unfolded] B={B_TIME_K2} x {ITERS}, sched2, 4/3 cold: "
                 f"kernel {ms:.1f} ms ({n_ii / ms * 1e3:.0f} inst-iter/s), plain {pms:.1f} ms; "
-                f"3xTF32 bound {bms:.1f} ms ({by}), fp32 SIMT bound {fp32_ms:.1f} ms {tag}")
+                f"one-pass (TF32) bound {bms:.1f} ms ({by}; {bms / ms:.1%} of it), 3xTF32 "
+                f"bound {x3_ms:.1f} ms, fp32 SIMT bound {fp32_ms:.1f} ms {tag}")
             if key == "K3":
                 self.kernels["K3"].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                                           library_ms=None)
@@ -1991,14 +2139,12 @@ class Smoke:
         M = random_hermitian(np.random.default_rng(1), B_TIME_K1, 101, self.dev)
         ms = cuda_ms(lambda: psd_project_polar_kernel(M, mode="fast", bf16_store=True), reps=3)
         pms = cuda_ms(lambda: psd_project_polar_plain(M, "fast", bf16_store=True), reps=3)
-        # the 6 low steps' 9 products each take bf16-valued operands; the 3
+        # the 6 low steps' 9 products each one-pass (bf16 operands); the 3
         # closing products read the fp32 M: in 3xTF32 on the tensor cores, or
         # as fp32 SIMT FMAs beside it
+        bms, by = polar_fast_bound(B_TIME_K1)
         closing, nbytes = B_TIME_K1 * 3 * 2.0 * 101**3, B_TIME_K1 * 2 * 101 * 101 * 8
-        low = B_TIME_K1 * 9 * 6 * 2.0 * 101**3
-        t_ops, t_bytes = low / PEAK_BF16 + 3 * closing / PEAK_TF32, nbytes / PEAK_BYTES
-        bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-        fp32_ms, _ = bound(closing, nbytes, bf16_flops=low)
+        fp32_ms, _ = bound(closing, nbytes, bf16_flops=B_TIME_K1 * 9 * 6 * 2.0 * 101**3)
         log(f"[23 time K1 fast bf16_store] B={B_TIME_K1} m=101: kernel {ms:.2f} ms, plain "
             f"{pms:.2f} ms per call; bound (bf16 low steps, 3xTF32 closing) {bms:.3f} ms "
             f"({by}; {bms / ms:.1%} of it), with fp32 SIMT closing {fp32_ms:.3f} ms {tag}")
@@ -2554,6 +2700,36 @@ def time_polar() -> int:
     return 0
 
 
+def time_deploy() -> int:
+    """``--time-deploy``: phase 9's classical deploy point alone (fused_fast
+    at the 10-iteration budget + PRODUCTION_PEAKS, B = 8192 anchor scenes),
+    DEPLOY_REPS CUDA-event calls, the median reported; to compare two trees
+    on one card as ``--time-k6`` does."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the deploy point's timing needs one GPU")
+    from admmnet_tpu_torch.core.config import (
+        DETECTION_BUDGET_ITERS,
+        PRODUCTION_PEAKS,
+        ADMMOptions,
+    )
+    from admmnet_tpu_torch.data.anchor import make_anchor_batch
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.peaks import find_peaks
+    from admmnet_tpu_torch.solver import admm_solve_fixed
+
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    y, b, s = to_dev(dev, *make_anchor_batch(B_TIME_K2, "redemod", seed=0))
+    opts = ADMMOptions(g_update="fused_fast")
+    calls = call_ms(lambda: find_peaks(admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0,
+                                                        opts), 10, 10, PRODUCTION_PEAKS).tau,
+                    DEPLOY_REPS)
+    log(f"[time deploy] {ROOT} B={B_TIME_K2}: median {np.median(calls) / B_TIME_K2:.5f} "
+        f"ms/scene ({np.median(calls):.2f} ms a call); calls "
+        f"{' '.join(f'{t:.2f}' for t in calls)} [{card()}]")
+    return 0
+
+
 def codegen() -> int:
     """``--codegen``: build the kernels and print phase 2's ptxas report
     (registers and spills of every instantiation) and the HMMA and
@@ -2564,8 +2740,9 @@ def codegen() -> int:
     _build.lib()
     log(f"[codegen] {ROOT}")
     log_ptxas("[codegen]")
-    for name, (key, hmma, ldl, stl) in sorted(sass_counts().items()):
-        log(f"[codegen {key} SASS] {demangle(name)}: {hmma} HMMA, {ldl} LDL / {stl} STL")
+    for name, (key, hmma, ldl, stl, bf16) in sorted(sass_counts().items()):
+        log(f"[codegen {key} SASS] {demangle(name)}: {hmma} HMMA ({bf16} bf16), {ldl} LDL / "
+            f"{stl} STL")
     return 0
 
 
@@ -2656,6 +2833,9 @@ if __name__ == "__main__":
                            "and run nothing else")
     mode.add_argument("--time-polar", action="store_true",
                       help="time K1 and K7 alone (see time_polar) and run nothing else")
+    mode.add_argument("--time-deploy", action="store_true",
+                      help="time the classical deploy point alone (see time_deploy) and run "
+                           "nothing else")
     mode.add_argument("--profile-k2", action="store_true",
                       help="run K2's subtraction profile alone (phase 25, see k2_profile)")
     mode.add_argument("--parallel", action="store_true",
@@ -2664,6 +2844,7 @@ if __name__ == "__main__":
                       help="run the phi-regression route alone (phase 27, see phi_route_only)")
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
-             else time_polar() if args.time_polar else codegen() if args.codegen
+             else time_polar() if args.time_polar else time_deploy() if args.time_deploy
+             else codegen() if args.codegen
              else profile_k2() if args.profile_k2 else parallel_only() if args.parallel
              else phi_route_only() if args.phi_route else main())

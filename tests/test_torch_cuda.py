@@ -6,21 +6,34 @@ without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: kernel (3xTF32 on the tensor cores, fp32-faithful; K1's
-bf16_store low steps in fp32 FMAs) and plain version compute every
-product in fp32 with sums in another order; through the accurate schedule's amplification that
-stays below 1e-4 relative for one projection, below 1e-3 for 20
-iterations of the fused solves (where a last-bit difference can also flip
-a bisection decision of the H-projection), below 1e-2 for the bf16
-iterate storage (where it can flip a bf16 rounding, 2^-8 relative), whose
-median matrix must agree to 1e-5 and stand more than 1e-3 from the fp32
-store (one flip is ~3e-3, fp32 noise ~1e-7), below 5e-5 for the 48
+Tolerances.  The all-fp32 modes (3xTF32 on the tensor cores,
+fp32-faithful) and their plain versions compute every product in fp32
+with sums in another order; through the accurate schedule's amplification
+that stays below 1e-4 relative for one projection, below 1e-3 for 20
+iterations of fused_exact and K7 (where a last-bit difference can also
+flip a bisection decision of the H-projection), below 5e-5 for the 48
 dependent steps of a Clenshaw evaluation at the GLayer's side (measured
 5.7e-7 on random matrices on an H100; at the edge sides, where small
 spiked matrices amplify any rounding, within 8x the fp32 plain version's
-distance from fp64), and below 1e-3
-for the reversible backward, which rebuilds the forward's states from its
-last two.
+distance from fp64), and below 1e-3 for the reversible backward, which
+rebuilds the forward's states from its last two.  The one-pass tier (K1's
+low steps in bf16, K2's and K3's low and final_hi-off closing products in
+tf32) is held to the plain version with ``one_pass=True``, whose operands
+are rounded as the kernel's: the first low step's median instance within
+1e-5 (the terms are exact; the worst within 1e-3, where a sum in another
+order flips an intermediate rounding); a whole K1 projection at the JAX
+package's 8e-3 ceiling for the fast tier's noise (median; 1e-2 for the
+worst matrix, where a flip is carried by the later low steps), and K1
+``bf16_store`` must stand more than 1e-3 from the fp32 store; K2 and K3
+per instance within 2e-2, the median instance within 1e-2 (K2_ONE_PASS:
+the tf32 tier measured 1.1e-2 / 2.8e-3 after 100 iterations on an H100,
+a bf16 tier 7.9e-2 / 2.2e-2; the JAX package's band for the fast mode's
+phi accuracy floor, 0.05 in tests/test_fused_fast.py, is wider).  The
+edge sides' knobs (warm root, the polish step, hi closing products, rho
+1.3, lambda 0.8) amplify the tf32 roundings more: at n = 111 and 126 the
+emulation sits median 1.4e-2, max 1.9e-2 from itself with float64 sums,
+as far as the kernel sits from it (tests/one_pass_spread.py on an H100),
+so they are held to twice that (K2_ONE_PASS_EDGES).
 """
 
 import numpy as np
@@ -52,8 +65,22 @@ def _rel(a, b, reduce=torch.max):
     return float(reduce(torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)))
 
 
+K2_ONE_PASS = {"median": 1e-2, "max": 2e-2}
+K2_ONE_PASS_EDGES = {"median": 3e-2, "max": 4e-2}
+
+
+def _one_pass_ok(pk, pp, tol=K2_ONE_PASS):
+    """K2 / K3 against their one-pass emulation (module docstring)."""
+    return _rel(pk, pp) < tol["max"] and _rel(pk, pp, torch.median) < tol["median"]
+
+
+def _hermitian(rng, B, m):
+    X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    return np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2, np.complex64)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode, eigh_tol", [("accurate", 2e-4), ("fast", 5e-4)])
+@pytest.mark.parametrize("mode, eigh_tol", [("accurate", 2e-4), ("fast", 8e-3)])
 def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(64, 101, 101)) + 1j * rng.normal(size=(64, 101, 101))
@@ -62,8 +89,36 @@ def test_polar_kernel_matches_plain(cuda, mode, eigh_tol):
     before = kp.launches.count
     Pk = kp.psd_project_polar_kernel(M, mode=mode)
     assert kp.launches.count == before + 1
-    assert _rel(Pk, kp.psd_project_polar_plain(M, mode=mode)) < 1e-4
+    Pp = kp.psd_project_polar_plain(M, mode=mode, one_pass=mode == "fast")
+    if mode == "fast":
+        assert _rel(Pk, Pp, torch.median) < 8e-3 and _rel(Pk, Pp) < 1e-2
+    else:
+        assert _rel(Pk, Pp) < 1e-4
     assert _rel(Pk, psd_project_eigh(M)) < eigh_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 119])
+def test_first_low_step_matches_the_emulation(cuda, n):
+    """K1 through its launcher with a one-step schedule, with and without
+    bf16 storage, and K2's second iteration (one step, final_hi off; the
+    first phi reads no product): exact terms, only the order of the sums
+    differs."""
+    from admmnet_tpu_torch.ops.projections import POLAR_BF16_SCHEDULE
+
+    M = torch.from_numpy(_hermitian(np.random.default_rng(n), 64, n + 1)).to(cuda)
+    one = (POLAR_BF16_SCHEDULE[0],)
+    for bf16_store in (False, True):
+        Pr, Pi = kp.launch_schedule(M, one, 0, bf16_store)
+        Pk = torch.complex(Pr[:, :n + 1, :n + 1], Pi[:, :n + 1, :n + 1])
+        Pe = kp.polar_plain_schedule(M, one, 0, bf16_store, True)
+        assert _rel(Pk, Pe, torch.median) < 1e-5 and _rel(Pk, Pe) < 1e-3
+    y, b, s = _anchor_rows(n, cuda)
+    kw = dict(hi_steps=0, outer_iters=4, inner_iters=3, schedule=(POLAR_BF16_SCHED2[0],),
+              final_hi=False, layout="lean", fold_diag=False)
+    pk = kf.admm_solve_fused_fast(y, b, s, 2, **kw)
+    pe = kf.admm_solve_fused_fast_plain(y, b, s, 2, one_pass=True, **kw)
+    assert _rel(pk, pe, torch.median) < 1e-5 and _rel(pk, pe) < 1e-3
 
 
 POLAR_MODES = [("accurate", None, False), ("fast", 0, False), ("fast", 1, False),
@@ -78,11 +133,11 @@ def test_polar_kernel_edges(cuda, m, mode, hi_steps, bf16_store):
     matrix on planes of side 112; m >= 113: a cluster of two on side 128;
     m = 1, 10, 16: most of the planes padding) in every mode, on an odd
     batch whose last matrix is zero: the zero matrix exactly zero, every
-    padded row and column exactly 0, the rest held to the plain version.
-    The error is taken against ||M|| (a 1 x 1 projection of a negative
-    entry is exactly 0): the fp32 modes within 1e-4, bf16_store's median
-    matrix within 1e-5 and every matrix within 1e-2 (where a sum in another
-    order flips one bf16 rounding)."""
+    padded row and column exactly 0, the rest held to the plain version
+    (the fast modes to its one-pass emulation).  The error is taken against
+    ||M|| (a 1 x 1 projection of a negative entry is exactly 0): accurate
+    within 1e-4, the fast modes' median matrix within 8e-3 and every matrix
+    within 1e-2 (the module's one-pass tolerances)."""
     rng = np.random.default_rng(m)
     X = rng.normal(size=(5, m, m)) + 1j * rng.normal(size=(5, m, m))
     M = torch.from_numpy(np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2,
@@ -96,11 +151,12 @@ def test_polar_kernel_edges(cuda, m, mode, hi_steps, bf16_store):
         assert bool(torch.all(torch.isfinite(x)))
         assert bool(torch.all(x[-1] == 0))
     Pk = torch.complex(Pr[:-1, :m, :m], Pi[:-1, :m, :m])
-    Pp = kp.psd_project_polar_plain(M[:-1], mode, hi_steps, bf16_store)
+    Pp = kp.psd_project_polar_plain(M[:-1], mode, hi_steps, bf16_store,
+                                    one_pass=mode == "fast")
     err = (torch.linalg.norm((Pk - Pp).reshape(4, -1), dim=-1)
            / torch.linalg.norm(M[:-1].reshape(4, -1), dim=-1))
-    if bf16_store:
-        assert float(err.median()) < 1e-5 and float(err.max()) < 1e-2
+    if mode == "fast":
+        assert float(err.median()) < 8e-3 and float(err.max()) < 1e-2
     else:
         assert float(err.max()) < 1e-4
 
@@ -155,7 +211,9 @@ def test_fused_kernel_matches_plain(cuda, g_update, n):
     before = kf.launches.count
     pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
     assert kf.launches.count == before + 1
-    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
+    fast = g_update == "fused_fast"
+    pp = kf.admm_solve_fused_fast_plain(y, b, s, 20, one_pass=fast, **kw)
+    assert _one_pass_ok(pk, pp) if fast else _rel(pk, pp) < 1e-3
 
 
 @pytest.mark.cuda
@@ -164,13 +222,14 @@ def test_fused_kernel_matches_plain(cuda, g_update, n):
 def test_fused_kernel_edges_match_plain(cuda, n, fold_diag):
     """Sides whose bands are mostly padding or whose row n opens or closes
     a band, and a hi step without three_pass (the polish step: no
-    re-projection) with hi closing products."""
+    re-projection) with hi closing products after the one-pass low steps."""
     y, b, s = _anchor_rows(n, cuda)
     kw = dict(hi_steps=1, outer_iters=4, inner_iters=3, final_hi=True, layout="lean",
               fold_diag=fold_diag, warm_root=True)
     pk = kf.admm_solve_fused_fast(y, b, s, 20, 1.3, 0.8, **kw)
     assert bool(torch.all(torch.isfinite(torch.view_as_real(pk))))
-    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.3, 0.8, **kw)) < 1e-3
+    pp = kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.3, 0.8, one_pass=True, **kw)
+    assert _one_pass_ok(pk, pp, K2_ONE_PASS_EDGES)
 
 
 @pytest.mark.cuda
@@ -185,7 +244,8 @@ def test_unfolded_fused_kernels_match_plain(cuda, layout, n):
     before = counter.count
     pk = kf.admm_solve_fused_fast(y, b, s, 20, 1.7, **kw)
     assert counter.count == before + 1
-    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.7, **kw)) < 1e-3
+    assert _one_pass_ok(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, 1.7, one_pass=True,
+                                                           **kw))
 
 
 @pytest.mark.cuda
@@ -200,7 +260,7 @@ def test_ablate_kernels_match_plain(cuda, ablate, n):
     pk = kf.admm_solve_fused_fast(y, b, s, 20, **kw)
     assert kf.launches.count == before + 1
     assert bool(torch.all(torch.isfinite(torch.view_as_real(pk))))
-    assert _rel(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, **kw)) < 1e-3
+    assert _one_pass_ok(pk, kf.admm_solve_fused_fast_plain(y, b, s, 20, one_pass=True, **kw))
 
 
 @pytest.mark.cuda
@@ -234,9 +294,9 @@ def test_polar_bf16_store_matches_plain(cuda, hi_steps):
     M = torch.from_numpy(np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2,
                                               np.complex64)).to(cuda)
     Pk = kp.psd_project_polar_kernel(M, mode="fast", hi_steps=hi_steps, bf16_store=True)
-    Pp = kp.psd_project_polar_plain(M, "fast", hi_steps, bf16_store=True)
+    Pp = kp.psd_project_polar_plain(M, "fast", hi_steps, bf16_store=True, one_pass=True)
     assert _rel(Pk, Pp) < 1e-2
-    assert _rel(Pk, Pp, torch.median) < 1e-5
+    assert _rel(Pk, Pp, torch.median) < 8e-3
     # the rounding shows: the fp32 store is a bf16 flip away on most matrices
     P32 = kp.psd_project_polar_kernel(M, mode="fast", hi_steps=hi_steps)
     assert _rel(Pk, P32, torch.median) > 1e-3
