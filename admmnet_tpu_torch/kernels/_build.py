@@ -49,11 +49,12 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _P,
     ),
     # Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i (carries: all null, or all
-    # written), B, P, m, degree, stream
-    "cheb_filter_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # written), B, P, m, degree, final_hi, stream
+    "cheb_filter_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B, P, m,
-    # degree, stream
-    "cheb_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # degree, three_pass, stream
+    "cheb_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P),
 }
 
 _lock = threading.Lock()

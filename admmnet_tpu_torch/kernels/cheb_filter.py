@@ -12,7 +12,7 @@ Counterparts of ``admmnet_tpu/kernels/cheb_filter.py``:
 
 Both CUDA kernels run one thread-block cluster per matrix with its working
 planes in the cluster's shared memory and every product on the tensor
-cores in 3xTF32 (``csrc/tc_product.cuh``).
+cores (``csrc/tc_product.cuh``), at the TPU kernels' tiers (below).
 
 Each has a plain version, the same dataflow in batched torch ops, which a
 CPU tensor runs; a CUDA tensor launches the kernel.  ``ChebFilterFn`` wires
@@ -27,31 +27,46 @@ kernel, and runs the Clenshaw recurrence through ``cheb_filter_matrices``.
 Forward dataflow: A = M / max(||M||_F, 1e-20); b_1 = b_2 = 0; for
 j = degree-1 .. 1, b_0 = herm(c_j I + 2 A b_1 - b_2); out = herm(c_0 I +
 A b_1 - b_2), herm(X) = (X + X^H)/2, every complex product a 3-product
-Karatsuba: 3xTF32 on the card (fp32-faithful, ~2^-21 per product), IEEE
-fp32 in the plain version.  The output is in the normalized domain (the
-caller scales by r).  The TPU kernel's one-pass bf16 products become
-fp32-faithful products; its per-step re-projection is kept.
+Karatsuba.  The output is in the normalized domain (the caller scales by
+r).  Precision follows the device, as ``Precision.DEFAULT`` does in JAX:
+the TPU kernel's products are DEFAULT, one-pass bf16 on the MXU (its
+closing product HIGHEST with ``final_hi``), and on the card every step's
+product and the closing one without ``final_hi`` is a one-pass bf16
+product (operands rounded to nearest-even bf16, Karatsuba's operand sums
+formed in fp32 and rounded once, exact products summed in fp32), the
+closing one with ``final_hi`` 3xTF32 (fp32-faithful).  On the CPU, where
+DEFAULT is fp32, the plain version's products are IEEE fp32;
+``one_pass=True`` makes them the card's one-pass products (the emulation
+the kernel is held to).  The per-step re-projection is kept.
 
 Backward (torch's complex convention: the conjugate of JAX's raw
 cotangent), for the cotangent Y of out: V = herm(Y); cbar_0 = Re tr V;
 Abar = V b_1; u = A V; v = -V; for j = 1 .. degree-2, with (s, t) =
 (b_j, b_{j+1}) rebuilt upward from the carries: cbar_j = Re tr u,
 Abar += 2 u t, (u, v) <- (v + 2 A u, -u), (s, t) <- (t, herm(c_j I + 2 A t
-- s)); finally cbar_{degree-1} = Re tr u.  The JAX kernel's last product
-with the rebuilt b_degree is left out: b_degree is exactly zero.  Then
+- s)); finally cbar_{degree-1} = Re tr u and, for degree >= 3, Abar += 2 u
+t with t the rebuilt b_degree, as the JAX kernel adds it: b_degree is zero
+in exact arithmetic, not when rebuilt from the carries of a one-pass
+forward.  Then
 the chain through the normalization, in torch ops:
-Mbar = (Abar - Re(sum conj(A) Abar) A) / r.  The kernel's products are
-fp32-faithful (3xTF32, ~2^-21 per product) and its plain version's IEEE
-fp32, the counterparts of the TPU kernel's 3-pass tier; the plain version
-also takes ``three_pass=True``, the TPU kernel's literal 3-pass split-bf16
-product, for parity tests with the JAX package's default.
+Mbar = (Abar - Re(sum conj(A) Abar) A) / r.  The backward's tier is
+``three_pass`` (``bwd_three_pass`` of the autograd path), the TPU kernel's
+two: True (JAX's default) is its ``_mm3``, the 3-pass split-bf16 product
+ah bh + ah bl + al bh with ah = bf16(a), al = a - ah; its three products
+are DEFAULT, so on the MXU al and bl are rounded to bf16 too, and K6 on
+the card computes that (three bf16 mma a 16-deep step).  False is
+HIGHEST: 3xTF32 on the card.  The plain version with ``three_pass`` keeps
+al and bl in fp32, as ``_mm3`` does on a CPU; with ``one_pass`` too it
+rounds them, the emulation K6 is held to.  Without ``three_pass`` its
+products are IEEE fp32.  The autograd path's default on a CPU tensor is
+fp32, what the JAX GLayer computes off the TPU (its XLA fallback).
 """
 
 from __future__ import annotations
 
 import torch
 
-from admmnet_tpu_torch.kernels.polar import LaunchCounter, karatsuba, padded_side
+from admmnet_tpu_torch.kernels.polar import LaunchCounter, bf16_rn, karatsuba, padded_side
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
 
 launches = LaunchCounter()  # K4: the inference forward
@@ -97,61 +112,76 @@ def _normalized(M: torch.Tensor):
 
 
 def cheb_filter_matrices_plain_with_residuals(M: torch.Tensor, coeffs: torch.Tensor,
-                                              degree: int):
+                                              degree: int, one_pass: bool = False,
+                                              final_hi: bool = False):
     """The training forward's computation in torch ops: (out, carries) with
     out complex (..., m, m) and carries the final (b_1, b_2) as the real
     planes (b1r, b1i, b2r, b2i), each (..., m, m).  complex64 inputs
-    compute in fp32, complex128 inputs in fp64."""
+    compute in fp32, complex128 inputs in fp64.  ``one_pass``: the card's
+    products, one-pass bf16 (``karatsuba`` with ``bf16_rn``), the closing
+    one too unless ``final_hi``; else every product is IEEE."""
     m = M.shape[-1]
     Ar, Ai = _normalized(M)
     c = coeffs.to(Ar.dtype)[..., None, None]
     eye = torch.eye(m, dtype=Ar.dtype, device=M.device)
+    rnd = bf16_rn if one_pass else None
     b1r = b1i = b2r = b2i = torch.zeros_like(Ar)
     for j in range(degree - 1, 0, -1):
-        Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
+        Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False, rnd)
         b0r, b0i = _herm_planes((c[..., j, :, :] * eye + 2.0 * Pr) - b2r, 2.0 * Pi - b2i)
         b1r, b1i, b2r, b2i = b0r, b0i, b1r, b1i
-    Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False)
+    Pr, Pi = karatsuba(Ar, Ai, b1r, b1i, False, None if final_hi else rnd)
     outr, outi = _herm_planes((c[..., 0, :, :] * eye + Pr) - b2r, Pi - b2i)
     return torch.complex(outr, outi), (b1r, b1i, b2r, b2i)
 
 
-def cheb_filter_matrices_plain(M: torch.Tensor, coeffs: torch.Tensor,
-                               degree: int) -> torch.Tensor:
-    """The kernel's computation in torch ops; complex64 (..., m, m) in/out."""
-    return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree)[0]
+def cheb_filter_matrices_plain(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                               one_pass: bool = False, final_hi: bool = False) -> torch.Tensor:
+    """The kernel's computation in torch ops; complex64 (..., m, m) in/out
+    (``one_pass``, ``final_hi``: as ``cheb_filter_matrices_plain_with_residuals``)."""
+    return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree, one_pass, final_hi)[0]
 
 
 def cheb_bwd_plain(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
-                   degree: int, three_pass: bool = False):
+                   degree: int, three_pass: bool = False, one_pass: bool = False):
     """The reversible backward's computation in torch ops: (Abar, cbar) for
     the output cotangent Y (..., m, m), in the normalized domain and torch's
     complex convention.  ``carries``: the forward's (b1r, b1i, b2r, b2i),
     each (..., m, m).  ``three_pass`` makes every product the 3-pass
-    split-bf16 product."""
+    split-bf16 product with fp32 residuals (``_mm3`` on a CPU); with
+    ``one_pass`` too the residuals are rounded to bf16, as the MXU and K6
+    round them."""
+    if one_pass and not three_pass:
+        raise ValueError("one_pass rounds the split product's residuals: it needs three_pass")
     m = M.shape[-1]
     Ar, Ai = _normalized(M)
     c = coeffs.to(Ar.dtype)[..., None, None]
     eye = torch.eye(m, dtype=Ar.dtype, device=M.device)
+    rnd = bf16_rn if one_pass else None
+
+    def kmul(Pr, Pi, Qr, Qi):
+        return karatsuba(Pr, Pi, Qr, Qi, three_pass, rnd)
+
     Vr, Vi = _herm_planes(Y.real.to(Ar.dtype), Y.imag.to(Ar.dtype))
     sr, si, tr, ti = carries
     cbar = [_trace(Vr)]
-    ABr, ABi = karatsuba(Vr, Vi, sr, si, three_pass)
-    ur, ui = karatsuba(Ar, Ai, Vr, Vi, three_pass)
+    ABr, ABi = kmul(Vr, Vi, sr, si)
+    ur, ui = kmul(Ar, Ai, Vr, Vi)
     vr, vi = -Vr, -Vi
     for j in range(1, degree - 1):
         cbar.append(_trace(ur))
-        Pr, Pi = karatsuba(ur, ui, tr, ti, three_pass)
+        Pr, Pi = kmul(ur, ui, tr, ti)
         ABr, ABi = ABr + 2.0 * Pr, ABi + 2.0 * Pi
-        Qr, Qi = karatsuba(Ar, Ai, ur, ui, three_pass)
+        Qr, Qi = kmul(Ar, Ai, ur, ui)
         ur, ui, vr, vi = vr + 2.0 * Qr, vi + 2.0 * Qi, -ur, -ui
-        if j == degree - 2:
-            break  # b_degree feeds nothing
-        Rr, Ri = karatsuba(Ar, Ai, tr, ti, three_pass)
+        Rr, Ri = kmul(Ar, Ai, tr, ti)
         nr, ni = _herm_planes((c[..., j, :, :] * eye + 2.0 * Rr) - sr, 2.0 * Ri - si)
         sr, si, tr, ti = tr, ti, nr, ni
     if degree >= 2:
         cbar.append(_trace(ur))
+    if degree >= 3:  # the rebuilt b_degree: zero only if the forward was exact
+        Pr, Pi = kmul(ur, ui, tr, ti)
+        ABr, ABi = ABr + 2.0 * Pr, ABi + 2.0 * Pi
     return torch.complex(ABr, ABi), torch.stack(cbar, dim=-1)
 
 
@@ -180,7 +210,8 @@ def _require_cuda(M: torch.Tensor) -> None:
         raise ValueError(f"the kernel runs on CUDA tensors, got {M.device}")
 
 
-def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries: bool):
+def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries: bool,
+                    final_hi: bool):
     P = _check(M, coeffs, degree)
     _require_cuda(M)
     from admmnet_tpu_torch.kernels import _build
@@ -198,7 +229,7 @@ def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries:
     with torch.cuda.device(M.device):
         err = lib.cheb_filter_launch(
             Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
-            *ptrs, B, P, m, degree,
+            *ptrs, B, P, m, degree, int(final_hi),
             torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "cheb_filter_launch")
@@ -206,25 +237,31 @@ def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries:
     return Gr, Gi, res
 
 
-def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                       final_hi: bool = False):
     """Launch K4 on CUDA tensors; returns its zero-padded output planes
-    (Gr, Gi), each (B, P, P) float32 with B the flattened batch."""
-    Gr, Gi, _ = _launch_forward(M, coeffs, degree, carries=False)
+    (Gr, Gi), each (B, P, P) float32 with B the flattened batch.  The
+    Clenshaw steps' products are one-pass bf16, the closing one too unless
+    ``final_hi`` (3xTF32)."""
+    Gr, Gi, _ = _launch_forward(M, coeffs, degree, carries=False, final_hi=final_hi)
     return Gr, Gi
 
 
-def cheb_fwd_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+def cheb_fwd_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                    final_hi: bool = False):
     """Launch K5 on CUDA tensors: (Gr, Gi, carries), the zero-padded output
     planes and the final carries (b1r, b1i, b2r, b2i), each (B, P, P)
-    float32.  (Gr, Gi) equal K4's bit for bit."""
-    return _launch_forward(M, coeffs, degree, carries=True)
+    float32.  (Gr, Gi) equal K4's bit for bit at the same ``final_hi``."""
+    return _launch_forward(M, coeffs, degree, carries=True, final_hi=final_hi)
 
 
 def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
-                    degree: int):
+                    degree: int, three_pass: bool = True):
     """Launch K6 on CUDA tensors: (ABr, ABi, cbar), Abar's zero-padded planes
     (B, P, P) and cbar (B, degree), float32.  ``carries``: K5's four
-    (B, P, P) planes; ``Y``: the output's cotangent, shaped like M."""
+    (B, P, P) planes; ``Y``: the output's cotangent, shaped like M.
+    ``three_pass``: split-bf16 products (the JAX package's default), else
+    3xTF32."""
     P = _check(M, coeffs, degree)
     _require_cuda(M)
     if Y.shape != M.shape or Y.device != M.device:
@@ -249,35 +286,49 @@ def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Ten
         err = lib.cheb_bwd_launch(
             Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Yr.data_ptr(), Yi.data_ptr(),
             *(x.data_ptr() for x in carries), ABr.data_ptr(), ABi.data_ptr(),
-            cbar.data_ptr(), B, P, m, degree, torch.cuda.current_stream(M.device).cuda_stream,
+            cbar.data_ptr(), B, P, m, degree, int(three_pass),
+            torch.cuda.current_stream(M.device).cuda_stream,
         )
     _build.check(err, "cheb_bwd_launch")
     bwd_launches.count += 1
     return ABr, ABi, cbar
 
 
-def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int):
+def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                            final_hi: bool = False):
     """(out, carries) of the training forward: K5 for a CUDA tensor (carries
-    as its padded planes), the plain version for a CPU tensor."""
+    as its padded planes), the plain version (fp32 products) for a CPU
+    tensor."""
     if M.device.type == "cpu":
         return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree)
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     m = M.shape[-1]
-    Gr, Gi, carries = cheb_fwd_planes(M, coeffs, degree)
+    Gr, Gi, carries = cheb_fwd_planes(M, coeffs, degree, final_hi)
     return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape), carries
 
 
-def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, degree: int):
+def _bwd_tier(M: torch.Tensor, three_pass):
+    """``bwd_three_pass`` resolved: None is the device's tier, the split
+    product on the card (the JAX package's default) and fp32 on the CPU
+    (what the JAX GLayer differentiates off the TPU)."""
+    return M.device.type == "cuda" if three_pass is None else bool(three_pass)
+
+
+def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, degree: int,
+             three_pass=None):
     """(Abar, cbar) of the reversible backward, in the normalized domain: K6
     for a CUDA tensor, ``cheb_bwd_plain`` for a CPU tensor; ``carries`` as
-    ``cheb_fwd_with_residuals`` returned them on that device."""
+    ``cheb_fwd_with_residuals`` returned them on that device.  ``three_pass``:
+    the split-bf16 tier (on a CPU tensor with fp32 residuals, as ``_mm3`` on
+    a CPU), else fp32 products; None takes the device's (``_bwd_tier``)."""
+    three_pass = _bwd_tier(M, three_pass)
     if M.device.type == "cpu":
-        return cheb_bwd_plain(M, coeffs, carries, Y, degree)
+        return cheb_bwd_plain(M, coeffs, carries, Y, degree, three_pass)
     if M.device.type != "cuda":
         raise ValueError(f"unsupported device {M.device}")
     m = M.shape[-1]
-    ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree)
+    ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree, three_pass)
     Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]).reshape(M.shape)
     return Abar, cbar.reshape(coeffs.shape)
 
@@ -285,50 +336,57 @@ def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, de
 class ChebFilterFn(torch.autograd.Function):
     """The normalized-domain Clenshaw evaluation with its reversible
     backward: forward K5 (CUDA) or its plain version (CPU), saving M, the
-    coefficients and the final carries; backward K6 or ``cheb_bwd_plain``,
-    then ``normalization_backward``.  On the CPU a complex128 M runs the
-    plain versions in fp64 (for gradcheck)."""
+    coefficients and the final carries; backward K6 or ``cheb_bwd_plain``
+    at ``bwd_three_pass`` (``cheb_bwd``), then ``normalization_backward``.
+    On the CPU a complex128 M runs the plain versions in fp64 (for
+    gradcheck)."""
 
     @staticmethod
-    def forward(ctx, M, coeffs, degree: int):
-        out, carries = cheb_fwd_with_residuals(M, coeffs, degree)
+    def forward(ctx, M, coeffs, degree: int, final_hi: bool = False, bwd_three_pass=None):
+        out, carries = cheb_fwd_with_residuals(M, coeffs, degree, final_hi)
         ctx.save_for_backward(M, coeffs, *carries)
         ctx.degree = degree
+        ctx.three_pass = bwd_three_pass
         return out
 
     @staticmethod
     def backward(ctx, gout):
         M, coeffs, *carries = ctx.saved_tensors
-        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree)
-        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None
+        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree, ctx.three_pass)
+        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None, None, None
 
 
-def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int) -> torch.Tensor:
+def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                         final_hi: bool = False, bwd_three_pass=None) -> torch.Tensor:
     """sum_k c_k T_k(M / ||M||_F) for batched Hermitian complex64 (..., m, m),
     m <= 128, with coefficients (..., degree) (c_0 pre-halved).
 
     When a gradient is needed this is ``ChebFilterFn`` (K5 + K6 on CUDA,
-    their plain versions on the CPU).  Otherwise a CUDA tensor launches K4
-    (one thread-block cluster per matrix) and a CPU tensor runs
-    ``cheb_filter_matrices_plain``.  Any other device raises.
+    their plain versions on the CPU; the backward at ``bwd_three_pass``,
+    None for the device's tier).  Otherwise a CUDA tensor launches K4 (one
+    thread-block cluster per matrix) and a CPU tensor runs
+    ``cheb_filter_matrices_plain``.  Any other device raises.  On the card
+    the products are one-pass bf16, the closing one 3xTF32 with
+    ``final_hi``; on the CPU every product is fp32.
     """
     _check(M, coeffs, degree)
     if M.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {M.device}")
     if torch.is_grad_enabled() and (M.requires_grad or coeffs.requires_grad):
-        return ChebFilterFn.apply(M, coeffs, degree)
+        return ChebFilterFn.apply(M, coeffs, degree, final_hi, bwd_three_pass)
     if M.device.type == "cpu":
         return cheb_filter_matrices_plain(M, coeffs, degree)
     if M.numel() == 0:
         return M.clone()
     m = M.shape[-1]
-    Gr, Gi = cheb_filter_planes(M, coeffs, degree)
+    Gr, Gi = cheb_filter_planes(M, coeffs, degree, final_hi)
     return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape)
 
 
 def apply_spectral_filter_kernel(M: torch.Tensor, f, degree: int = 48) -> torch.Tensor:
     """f_mat(M) for Hermitian complex64 (..., m, m) and pointwise filter f,
-    the Clenshaw recurrence through ``cheb_filter_matrices``.
+    the Clenshaw recurrence through ``cheb_filter_matrices`` (the backward
+    at the device's tier).
 
     Counterpart of ``apply_spectral_filter_pallas``: the filter sampling,
     the coefficient projection and the scaling by r = max(||M||_F, 1e-20)

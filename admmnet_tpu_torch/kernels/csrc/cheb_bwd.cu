@@ -19,32 +19,47 @@
 //     cbar_j = Re tr u
 //     Abar  += 2 u t
 //     (u, v) <- (v + 2 A u, -u)
-//     (s, t) <- (t, herm(c_j I + 2 A t - s))      (skipped at j = degree-2)
-//   cbar_{degree-1} = Re tr u          (its Abar term, 2 u b_degree, is 0)
+//     (s, t) <- (t, herm(c_j I + 2 A t - s))
+//   cbar_{degree-1} = Re tr u;  Abar += 2 u b_degree   (degree >= 3)
 //
+// b_degree is zero in exact arithmetic; rebuilt from the carries of a
+// one-pass forward it is not, and the TPU kernel adds its term, so this
+// kernel does too (degree 2 rebuilds nothing: its b_degree is the zero
+// carry b_2).
 // The kernel runs the first line as step 0 of the loop, with u = V, t = b_1,
 // v = 0 and the factor 1 in place of 2, then sets (s, t) = (b_1, b_2).
 // A and every b_j are Hermitian, so no product needs a transposed operand;
 // u and t do not commute, so each product is the general Karatsuba form.
 //
-// Bound on this card: arithmetic.  3 degree - 5 complex products of side m
-// per matrix (degree 48, m = 101: 8.6e8 FLOP of useful work) against one
+// Bound on this card: arithmetic.  3 degree - 3 complex products of side m
+// per matrix (degree 48, m = 101: 8.8e8 FLOP of useful work) against one
 // read of M, Y, the four carry planes and one write of Abar (0.4 MB).
+//
+// Precision, the TPU kernel's two tiers: three_pass (the JAX package's
+// default) multiplies with its _mm3, the 3-pass split-bf16 product whose
+// three products are one-pass DEFAULT products on the MXU; here
+// tc_product.cuh's Prec::SPLIT_BF16, three bf16 mma.sync m16n8k16 per real
+// product and 16-deep step (x = xh + xl, xh = bf16_rn(x), xl =
+// bf16_rn(x - xh); xh yl + xl yh + xh yh).  Without three_pass the TPU
+// kernel multiplies at HIGHEST; here in 3xTF32 (Prec::TF32X3).  Either way
+// the kernel rebuilds the forward's states from the carries in its own
+// tier, whatever tier the forward ran, as the TPU kernel does.
 //
 // Design (tc_product.cuh): one thread-block cluster of P / 16 CTAs per
 // matrix; CTA q owns rows [16 q, 16 q + 16) of every working plane in its
 // shared memory: A, u, t and s as real/imaginary band planes (s doubles as
 // the exchange plane of herm), with v and Abar in registers in the mma
 // accumulator layout.  Each step is two passes over K on the tensor cores
-// (3xTF32): u t and A t share the staged bands of t, A u reads the bands of
+// (at the tier above): u t and A t share the staged bands of t, A u reads the bands of
 // u; every CTA reads every band of t and u from its owner through
 // distributed shared memory.  herm's transpose and the trace's sum read
 // across the cluster between two cluster barriers per step.  Nothing but the
-// inputs and outputs touches device memory.
+// inputs and outputs touches device memory.  The two tiers are two
+// instantiations (PREC).
 //
 // Padding: Y, M and the carries are zero past the logical side m and c_j is
 // added on the logical diagonal only, so every padded row and column of
-// every plane stays exactly zero (a zero splits into zero tf32 halves).
+// every plane stays exactly zero (a zero splits into zero halves).
 #include "common.cuh"
 #include "tc_product.cuh"
 
@@ -64,7 +79,7 @@ constexpr int bwd_smem_floats() {
 
 // At P = 112 two CTAs share an SM (128 registers a thread, with some
 // spills); at P = 128 the shared memory holds one.
-template <int P>
+template <int P, tcp::Prec PREC>
 __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd_kernel(
     const float* __restrict__ Mr_all, const float* __restrict__ Mi_all,
     const float* __restrict__ coeffs, const float* __restrict__ Yr_all,
@@ -162,7 +177,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
 
   const int last = degree >= 2 ? degree - 2 : 0;
   for (int j = 0; j <= last; ++j) {
-    const bool rebuild = j >= 1 && j < degree - 2;  // (s, t) <- (t, herm(...))
+    const bool rebuild = j >= 1;  // (s, t) <- (t, herm(...))
     const float alpha = j == 0 ? 1.f : 2.f;
     band_trace();
     // pass over t: P = u t (Abar += alpha P) and, when rebuilding,
@@ -172,7 +187,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
       CAcc acc[2][NPW];
       const float* const lr[2] = {ur, Ar};
       const float* const li[2] = {ui, Ai};
-      tcp::band_product<P, 2>(cluster, tr, ti, lr, li, stage, m, acc);
+      tcp::band_product<P, 2, PREC>(cluster, tr, ti, lr, li, stage, m, acc);
       const float cj = c[j];
 #pragma unroll
       for (int jj = 0; jj < NPW; ++jj)
@@ -189,7 +204,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
       CAcc acc[1][NPW];
       const float* const lr[1] = {ur};
       const float* const li[1] = {ui};
-      tcp::band_product<P, 1>(cluster, tr, ti, lr, li, stage, m, acc);
+      tcp::band_product<P, 1, PREC>(cluster, tr, ti, lr, li, stage, m, acc);
 #pragma unroll
       for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
@@ -203,7 +218,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
     {
       const float* const lr[1] = {Ar};
       const float* const li[1] = {Ai};
-      tcp::band_product<P, 1>(cluster, ur, ui, lr, li, stage, m, qa);
+      tcp::band_product<P, 1, PREC>(cluster, ur, ui, lr, li, stage, m, qa);
     }
     cluster.sync();  // every read of u and t is done; X and the traces are visible
     write_trace(j);
@@ -255,6 +270,19 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
     cluster.sync();
     write_trace(degree - 1);
   }
+  if (degree >= 3) {  // Abar += 2 u b_degree
+    CAcc acc[1][NPW];
+    const float* const lr[1] = {ur};
+    const float* const li[1] = {ui};
+    tcp::band_product<P, 1, PREC>(cluster, tr, ti, lr, li, stage, m, acc);
+#pragma unroll
+    for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        abr[jj][e] += 2.f * tcp::acc_re(acc[0][jj], e);
+        abi[jj][e] += 2.f * tcp::acc_im(acc[0][jj], e);
+      }
+  }
 #pragma unroll
   for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
@@ -266,14 +294,14 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, P == 112 ? 2 : 1) cheb_bwd
   cluster.sync();  // no CTA leaves while another still reads its slots
 }
 
-template <int P>
+template <int P, tcp::Prec PREC>
 int launch_cheb_bwd(const float* Mr, const float* Mi, const float* coeffs, const float* Yr,
                     const float* Yi, const float* b1r, const float* b1i, const float* b2r,
                     const float* b2i, float* ABr, float* ABi, float* cbar, int B, int m,
                     int degree, cudaStream_t st) {
   using L = tcp::Layout<P>;
   const int bytes = bwd_smem_floats<P>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(cheb_bwd_kernel<P>,
+  cudaError_t err = cudaFuncSetAttribute(cheb_bwd_kernel<P, PREC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -288,8 +316,8 @@ int launch_cheb_bwd(const float* Mr, const float* Mi, const float* coeffs, const
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, cheb_bwd_kernel<P>, Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i,
-                           ABr, ABi, cbar, m, degree);
+  err = cudaLaunchKernelEx(&cfg, cheb_bwd_kernel<P, PREC>, Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r,
+                           b2i, ABr, ABi, cbar, m, degree);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -300,21 +328,24 @@ int launch_cheb_bwd(const float* Mr, const float* Mi, const float* coeffs, const
 // output's cotangent Y, zero-padded past the logical side m; coeffs:
 // (B, degree) floats; b1r, b1i, b2r, b2i: the forward's final carries as
 // cheb_filter_launch writes them; ABr, ABi: (B, P, P) planes of Abar,
-// written; cbar: (B, degree) floats, written.  Returns the launch's
-// cudaError_t.
+// written; cbar: (B, degree) floats, written.  three_pass: split-bf16
+// products, else 3xTF32.  Returns the launch's cudaError_t.
 extern "C" int cheb_bwd_launch(const float* Mr, const float* Mi, const float* coeffs,
                                const float* Yr, const float* Yi, const float* b1r,
                                const float* b1i, const float* b2r, const float* b2i,
                                float* ABr, float* ABi, float* cbar, int B, int P, int m,
-                               int degree, void* stream) {
+                               int degree, int three_pass, void* stream) {
   using namespace admmk;
+  using tcp::Prec;
   if (B <= 0 || degree < 1 || m < 1 || m > P) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CHEB_BWD(PV, PR)                                                                      \
+  launch_cheb_bwd<PV, PR>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B, m, \
+                          degree, st)
   if (P == 112)
-    return launch_cheb_bwd<112>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B,
-                                m, degree, st);
+    return three_pass ? CHEB_BWD(112, Prec::SPLIT_BF16) : CHEB_BWD(112, Prec::TF32X3);
   if (P == 128)
-    return launch_cheb_bwd<128>(Mr, Mi, coeffs, Yr, Yi, b1r, b1i, b2r, b2i, ABr, ABi, cbar, B,
-                                m, degree, st);
+    return three_pass ? CHEB_BWD(128, Prec::SPLIT_BF16) : CHEB_BWD(128, Prec::TF32X3);
+#undef CHEB_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,23 +15,32 @@
 // kernel starts from its result, b_1 = c_{degree-1} I, and runs degree - 1
 // products.  Every b_j is a polynomial in A, so the product is Hermitian in
 // exact arithmetic, and the re-projection removes only the rounding's
-// non-Hermitian part before the 2 A b_1 doubling compounds it.  The TPU
-// kernel's one-pass bf16 products have no counterpart here, nor has its
-// final_hi option: every product is fp32-faithful.
+// non-Hermitian part before the 2 A b_1 doubling compounds it.
+//
+// Precision, the TPU kernel's: its cmul multiplies at Precision.DEFAULT,
+// a one-pass bf16 product on the MXU, and so does its closing product
+// unless final_hi, which makes that one HIGHEST.  Here every step's
+// product, and the closing one without final_hi, is a one-pass bf16
+// product on the tensor cores (tc_product.cuh's Prec::ONE_PASS_BF16: A and
+// b_1 rounded to bf16, Karatsuba's operand sums formed in fp32 and rounded
+// once, mma.sync m16n8k16 with fp32 accumulation); with final_hi the
+// closing product is 3xTF32 (fp32-faithful), a branch on a kernel argument
+// that every CTA of the cluster takes alike.  The plain version with
+// one_pass=True rounds the same operands (kernels/cheb_filter.py).
 //
 // Bound on this card: arithmetic.  degree - 1 complex products of side m
 // per matrix, each three real products (Karatsuba): at degree 48 and
 // m = 101, 2.9e8 FLOP of useful work against one read of M and one write
-// of G (163 KB; K5 adds the four carry planes).  In 3xTF32 on the tensor
-// cores (three TF32 products per useful one at 495 TFLOP/s) that is
-// 1.76 us a matrix, against 4.3 us at the fp32 SIMT peak of 67 TFLOP/s.
+// of G (163 KB; K5 adds the four carry planes).  At the dense bf16 peak
+// (989 TFLOP/s) that is 0.29 us a matrix; in 3xTF32 (three TF32 products
+// per useful one at 495 TFLOP/s) it was 1.76 us.
 //
 // Design (tc_product.cuh, as cheb_bwd.cu): one thread-block cluster of
 // P / 16 CTAs per matrix; CTA q owns rows [16 q, 16 q + 16) of A, b_1 and
 // b_2 as real/imaginary band planes in its shared memory, beside the
 // staging double buffer (75328 B a CTA at P = 112, two CTAs an SM).  A
-// step is one band_product on the tensor cores (3xTF32 mma.sync,
-// Karatsuba): the CTA's band of A against b_1's bands, staged from their
+// step is one band_product on the tensor cores (bf16 mma.sync, Karatsuba):
+// the CTA's band of A against b_1's bands, staged from their
 // owners through distributed shared memory, own band first.  X = c_j I +
 // 2 A b_1 - b_2 is formed in the accumulator layout in the stage's first
 // half; after a cluster barrier each warp copies the one 16 x 16 block of
@@ -48,10 +57,12 @@
 // Padding: the planes are zero-padded from m to P.  c_j is added on the
 // logical diagonal only (row < m), so every padded row and column stays
 // exactly zero through the whole recurrence (a zero row of A or column of
-// b_1 gives a zero row or column of the product; a zero splits into zero
-// tf32 halves).
+// b_1 gives a zero row or column of the product; a zero rounds to a zero
+// bf16 and splits into zero tf32 halves).
 #include "common.cuh"
 #include "tc_product.cuh"
+
+#include <type_traits>
 
 namespace admmk {
 
@@ -59,6 +70,9 @@ namespace cg = cooperative_groups;
 using tcp::BAND;
 using tcp::CAcc;
 using tcp::NPW;
+using tcp::Prec;
+template <Prec PR>
+using PrecTag = std::integral_constant<Prec, PR>;
 
 template <int P>
 constexpr int fwd_smem_floats() {
@@ -78,7 +92,7 @@ template <int P>
 __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
     const float* __restrict__ Mr_all, const float* __restrict__ Mi_all,
     const float* __restrict__ coeffs, float* Gr_all, float* Gi_all, float* C1r_all,
-    float* C1i_all, float* C2r_all, float* C2i_all, int m, int degree) {
+    float* C1i_all, float* C2r_all, float* C2i_all, int m, int degree, int final_hi) {
   using L = tcp::Layout<P>;
   constexpr int SA = L::SA, SB = L::SB;
   static_assert(L::NC * 2 * BAND * WS <= 2 * L::SLICE, "herm's blocks exceed the stage");
@@ -148,13 +162,13 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
   }
   cluster.sync();
 
-  // X = cj I + alpha A b_1 - b_2 into the stage's first half; returns once
-  // X is visible to the cluster
-  auto form_x = [&](float cj, float alpha) {
+  // X = cj I + alpha A b_1 - b_2 into the stage's first half, the product
+  // at the tier of the tag; returns once X is visible to the cluster
+  auto form_x = [&](float cj, float alpha, auto tier) {
     CAcc acc[1][NPW];
     const float* const lr[1] = {Ar};
     const float* const li[1] = {Ai};
-    tcp::band_product<P, 1>(cluster, b1r, b1i, lr, li, stage, m, acc);
+    tcp::band_product<P, 1, decltype(tier)::value>(cluster, b1r, b1i, lr, li, stage, m, acc);
     __syncthreads();  // every warp is done with the stage
 #pragma unroll
     for (int jj = 0; jj < NPW; ++jj)
@@ -202,7 +216,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
   };
 
   for (int j = degree - 2; j >= 1; --j) {
-    form_x(c[j], 2.f);
+    form_x(c[j], 2.f, PrecTag<Prec::ONE_PASS_BF16>{});
     // b_0 = herm(X) over b_2, which no other CTA reads; then
     // (b_1, b_2) <- (b_0, b_1)
     float hr[NPW][4], hi[NPW][4];
@@ -224,8 +238,11 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
     cluster.sync();  // b_0 is visible; every read of X is done
   }
 
-  // G = herm(c_0 I + A b_1 - b_2)
-  form_x(c[0], 1.f);
+  // G = herm(c_0 I + A b_1 - b_2), final_hi: in 3xTF32
+  if (final_hi)
+    form_x(c[0], 1.f, PrecTag<Prec::TF32X3>{});
+  else
+    form_x(c[0], 1.f, PrecTag<Prec::ONE_PASS_BF16>{});
   {
     float hr[NPW][4], hi[NPW][4];
     herm(hr, hi);
@@ -256,7 +273,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
 template <int P>
 int launch_cheb_filter(const float* Mr, const float* Mi, const float* coeffs, float* Gr,
                        float* Gi, float* b1r, float* b1i, float* b2r, float* b2i, int B, int m,
-                       int degree, cudaStream_t st) {
+                       int degree, int final_hi, cudaStream_t st) {
   using L = tcp::Layout<P>;
   const int bytes = fwd_smem_floats<P>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(cheb_filter_kernel<P>,
@@ -275,7 +292,7 @@ int launch_cheb_filter(const float* Mr, const float* Mi, const float* coeffs, fl
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, cheb_filter_kernel<P>, Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r,
-                           b2i, m, degree);
+                           b2i, m, degree, final_hi);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -287,10 +304,12 @@ int launch_cheb_filter(const float* Mr, const float* Mi, const float* coeffs, fl
 // written.  b1r, b1i, b2r, b2i: all null (the inference forward) or all
 // (B, P, P) planes that receive the final Clenshaw carries (the training
 // forward); the output G is the same either way, bit for bit, since both
-// run the same instantiation.  Returns the launch's cudaError_t.
+// run the same instantiation.  final_hi: the closing product in 3xTF32
+// instead of one-pass bf16.  Returns the launch's cudaError_t.
 extern "C" int cheb_filter_launch(const float* Mr, const float* Mi, const float* coeffs,
                                   float* Gr, float* Gi, float* b1r, float* b1i, float* b2r,
-                                  float* b2i, int B, int P, int m, int degree, void* stream) {
+                                  float* b2i, int B, int P, int m, int degree, int final_hi,
+                                  void* stream) {
   using namespace admmk;
   if (B <= 0 || degree < 1 || m < 1 || m > P) return static_cast<int>(cudaErrorInvalidValue);
   const bool carries = b1r != nullptr;
@@ -299,9 +318,9 @@ extern "C" int cheb_filter_launch(const float* Mr, const float* Mi, const float*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 112)
     return launch_cheb_filter<112>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i, B, m, degree,
-                                   st);
+                                   final_hi, st);
   if (P == 128)
     return launch_cheb_filter<128>(Mr, Mi, coeffs, Gr, Gi, b1r, b1i, b2r, b2i, B, m, degree,
-                                   st);
+                                   final_hi, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

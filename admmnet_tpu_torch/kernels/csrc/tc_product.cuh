@@ -1,7 +1,8 @@
 // Tensor-core complex products for kernels that keep a matrix's planes on
 // chip across a thread-block cluster, in the precision tiers of the JAX
 // package: fp32-faithful products (its HIGHEST), the 3-pass split-bf16
-// product (three_pass) and one-pass products (its DEFAULT).
+// product (three_pass) and one-pass products (its DEFAULT), each on the
+// tensor cores.
 //
 // Layout: a P x P complex matrix (P = 112 or 128, zero-padded past its
 // logical side) is split into P / 16 row bands of 16 rows; CTA q of a
@@ -45,9 +46,23 @@
 // K3 take tf32 because at bf16 two valid summation orders of the same
 // arithmetic leave phi further apart after 100 iterations than the gate
 // that holds the kernel to its plain version allows (PERF.md, section 6).
-// For the bf16 one-pass products of polar_cta.cuh (K1), pack_bf16 and
-// mma16 below: mma.sync m16n8k16 bf16, each operand rounded to
-// nearest-even bf16 (cvt.rn.bf16x2.f32, two values a register).
+//
+// bf16 one-pass products (Prec::ONE_PASS_BF16, K4/K5's Clenshaw steps;
+// polar_cta.cuh's K1 uses the same helpers): one mma.sync m16n8k16 bf16
+// per real product and 16-deep step, each operand rounded to nearest-even
+// bf16 (pack_bf16: cvt.rn.bf16x2.f32, two values a register; Karatsuba's
+// operand sums formed in fp32 and rounded once), the exact products summed
+// in the mma's fp32 accumulator over the whole K.
+//
+// Split-bf16 products as the TPU's MXU computes them (Prec::SPLIT_BF16,
+// K6's three_pass tier): the JAX package's _mm3, ah bh + ah bl + al bh with
+// xh = bf16_rn(x) and xl = bf16_rn(x - xh) (its three products are
+// one-pass DEFAULT products, which round the residual to bf16 too): three
+// m16n8k16 bf16 mma per real product and 16-deep step, the small terms
+// first, summed in the accumulator over the whole K.  Against Prec::SPLIT
+// it drops xl's bits below bf16 (~2^-16 relative, the size of the
+// contract's own dropped xl yl) and issues three bf16 mma where SPLIT
+// issues eight TF32 m16n8k8 for the same depth.
 //
 // A split or one-pass product that must round the same operands as the
 // Hermitian square's three products (KARA = false) takes the
@@ -191,6 +206,13 @@ __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Split-bf16 halves of two values: h = bf16_rn(x) and l = bf16_rn(x - h),
+// each pair packed as pack_bf16 packs it (x - h is exact in fp32)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& h, uint32_t& l) {
+  h = pack_bf16(x0, x1);
+  l = pack_bf16(x0 - __uint_as_float(h << 16), x1 - __uint_as_float(h & 0xffff0000u));
+}
+
 // Fragments of a complex operand: real part, imaginary part, their sum.
 struct CAFrag {
   AFrag r, i, s;
@@ -212,6 +234,20 @@ struct CAFrag16 {
 };
 struct CBFrag16 {
   uint32_t r[2], i[2], s[2];
+};
+// Split-bf16 fragments of a 16-deep step: the bf16 halves h and l of each
+// part, packed.
+struct SAFrag16 {
+  uint32_t h[4], l[4];
+};
+struct SBFrag16 {
+  uint32_t h[2], l[2];
+};
+struct CSAFrag16 {
+  SAFrag16 r, i, s;
+};
+struct CSBFrag16 {
+  SBFrag16 r, i, s;
 };
 // Karatsuba accumulators of one complex n-tile (the 4-multiplication form
 // keeps Lr Ri + Li Rr in t3).
@@ -371,8 +407,111 @@ __device__ __forceinline__ void one_pass_mma(CAcc& c, const CAFrag& a, const CBF
   }
 }
 
+// bf16 fragments of a 16-deep step at columns (left) or rows (right)
+// [k0, k0 + 16): a register holds PTX's k pair (2q, 2q + 1) or (2q + 8,
+// 2q + 9), read from columns / rows (q, q + 4) or (q + 8, q + 12) of the
+// step (the same relabelling of k on both sides, so the sum is unchanged).
+// load_a16 / load_b16 round each value to bf16, the _split forms split it
+// into its bf16 halves; KARA also forms the fp32 operand sums.
+template <int SA, bool KARA>
+__device__ __forceinline__ void load_a16(CAFrag16& f, const float* Lr, const float* Li, int k0,
+                                         int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[4] = {g * SA + k0 + q, (g + 8) * SA + k0 + q, g * SA + k0 + q + 8,
+                      (g + 8) * SA + k0 + q + 8};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr0 = Lr[idx[e]], xr1 = Lr[idx[e] + 4];
+    const float xi0 = Li[idx[e]], xi1 = Li[idx[e] + 4];
+    f.r[e] = pack_bf16(xr0, xr1);
+    f.i[e] = pack_bf16(xi0, xi1);
+    if (KARA) f.s[e] = pack_bf16(xr0 + xi0, xr1 + xi1);
+  }
+}
+
+template <int SB, bool KARA>
+__device__ __forceinline__ void load_b16(CBFrag16& f, const float* Sr, const float* Si, int k0,
+                                         int n0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[2] = {(k0 + q) * SB + n0 + g, (k0 + q + 8) * SB + n0 + g};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float yr0 = Sr[idx[e]], yr1 = Sr[idx[e] + 4 * SB];
+    const float yi0 = Si[idx[e]], yi1 = Si[idx[e] + 4 * SB];
+    f.r[e] = pack_bf16(yr0, yr1);
+    f.i[e] = pack_bf16(yi0, yi1);
+    if (KARA) f.s[e] = pack_bf16(yr0 + yi0, yr1 + yi1);
+  }
+}
+
+template <int SA, bool KARA>
+__device__ __forceinline__ void load_a16_split(CSAFrag16& f, const float* Lr, const float* Li,
+                                               int k0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[4] = {g * SA + k0 + q, (g + 8) * SA + k0 + q, g * SA + k0 + q + 8,
+                      (g + 8) * SA + k0 + q + 8};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr0 = Lr[idx[e]], xr1 = Lr[idx[e] + 4];
+    const float xi0 = Li[idx[e]], xi1 = Li[idx[e] + 4];
+    split_bf16(xr0, xr1, f.r.h[e], f.r.l[e]);
+    split_bf16(xi0, xi1, f.i.h[e], f.i.l[e]);
+    if (KARA) split_bf16(xr0 + xi0, xr1 + xi1, f.s.h[e], f.s.l[e]);
+  }
+}
+
+template <int SB, bool KARA>
+__device__ __forceinline__ void load_b16_split(CSBFrag16& f, const float* Sr, const float* Si,
+                                               int k0, int n0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int idx[2] = {(k0 + q) * SB + n0 + g, (k0 + q + 8) * SB + n0 + g};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float yr0 = Sr[idx[e]], yr1 = Sr[idx[e] + 4 * SB];
+    const float yi0 = Si[idx[e]], yi1 = Si[idx[e] + 4 * SB];
+    split_bf16(yr0, yr1, f.r.h[e], f.r.l[e]);
+    split_bf16(yi0, yi1, f.i.h[e], f.i.l[e]);
+    if (KARA) split_bf16(yr0 + yi0, yr1 + yi1, f.s.h[e], f.s.l[e]);
+  }
+}
+
+// c += one 16-deep step's bf16 one-pass products: Karatsuba's three, or
+// the 4-multiplication form's
+template <bool KARA>
+__device__ __forceinline__ void one_pass_mma16(CAcc& c, const CAFrag16& a, const CBFrag16& b) {
+  mma16(c.t1, a.r, b.r);
+  mma16(c.t2, a.i, b.i);
+  if (KARA) {
+    mma16(c.t3, a.s, b.s);
+  } else {
+    mma16(c.t3, a.r, b.i);
+    mma16(c.t3, a.i, b.r);
+  }
+}
+
+// d += xh yl + xl yh + xh yh, one 16-deep step of a split-bf16 product
+__device__ __forceinline__ void split_mma16(float (&d)[4], const SAFrag16& a, const SBFrag16& b) {
+  mma16(d, a.h, b.l);
+  mma16(d, a.l, b.h);
+  mma16(d, a.h, b.h);
+}
+
+// c += one 16-deep step's split-bf16 products (Karatsuba's three, or the
+// 4-multiplication form's)
+template <bool KARA>
+__device__ __forceinline__ void split_mma16_c(CAcc& c, const CSAFrag16& a, const CSBFrag16& b) {
+  split_mma16(c.t1, a.r, b.r);
+  split_mma16(c.t2, a.i, b.i);
+  if (KARA) {
+    split_mma16(c.t3, a.s, b.s);
+  } else {
+    split_mma16(c.t3, a.r, b.i);
+    split_mma16(c.t3, a.i, b.r);
+  }
+}
+
 // The tier of band_product's products (header).
-enum class Prec { TF32X3, SPLIT, ONE_PASS };
+enum class Prec { TF32X3, SPLIT, ONE_PASS, ONE_PASS_BF16, SPLIT_BF16 };
 
 // C_l = L_l R for NL local left bands (Lr[l], Li[l]: band planes in this
 // CTA's shared memory) and the right operand R whose band q lies in CTA q's
@@ -382,9 +521,9 @@ enum class Prec { TF32X3, SPLIT, ONE_PASS };
 // buffers of two planes).  Every thread of the CTA must call it; it starts
 // with a barrier, so the caller may rewrite the stage right before, and it
 // leaves the left and right planes untouched.  PREC: the products' tier;
-// SPLIT and ONE_PASS take Karatsuba's form, or with KARA = false the
-// 4-multiplication form, whose imaginary part is acc_im4 (TF32X3 is
-// always Karatsuba's).
+// SPLIT, ONE_PASS, ONE_PASS_BF16 and SPLIT_BF16 take Karatsuba's form, or
+// with KARA = false the 4-multiplication form, whose imaginary part is
+// acc_im4 (TF32X3 is always Karatsuba's).
 template <int P, int NL, Prec PREC = Prec::TF32X3, bool KARA = true>
 __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* Rr,
                                              float* Ri, const float* const (&Lr)[NL],
@@ -431,6 +570,34 @@ __device__ __forceinline__ void band_product(cg::cluster_group& cluster, float* 
     put(st);
     __syncthreads();
     if (i + 1 < nbands) fetch(band(i + 1));
+    if constexpr (PREC == Prec::ONE_PASS_BF16) {  // one 16-deep step a band
+      CBFrag16 b[NPW];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+        load_b16<L::SB, KARA>(b[j], st, st + L::SLICE, 0, warp * 16 + 8 * j, lane);
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        CAFrag16 a;
+        load_a16<L::SA, KARA>(a, Lr[l], Li[l], q * BAND, lane);
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) one_pass_mma16<KARA>(acc[l][j], a, b[j]);
+      }
+      continue;
+    }
+    if constexpr (PREC == Prec::SPLIT_BF16) {
+      CSBFrag16 b[NPW];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+        load_b16_split<L::SB, KARA>(b[j], st, st + L::SLICE, 0, warp * 16 + 8 * j, lane);
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        CSAFrag16 a;
+        load_a16_split<L::SA, KARA>(a, Lr[l], Li[l], q * BAND, lane);
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) split_mma16_c<KARA>(acc[l][j], a, b[j]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < BAND; kk += 8) {
       if constexpr (PREC == Prec::ONE_PASS) {

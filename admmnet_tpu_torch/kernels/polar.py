@@ -103,14 +103,19 @@ def mm(a: torch.Tensor, b: torch.Tensor, split: bool, one_pass_round=None) -> to
     (x = xh + xl, xh = bf16_rn(x), xl = x - xh in fp32) with ``split``; the
     one-pass product rnd(a) rnd(b), summed in fp32, with ``one_pass_round``
     = rnd (``bf16_rn``: the JAX package's DEFAULT, K1's tier on the card;
-    ``tf32_rna``: K2's and K3's)."""
+    ``tf32_rna``: K2's and K3's).  With both, the split product of one-pass
+    products, whose residuals are rounded too: xl = rnd(x - xh) (the JAX
+    package's ``_mm3`` on the MXU, K6's split tier)."""
+    if split:
+        ah = bf16_rn(a)
+        bh = bf16_rn(b)
+        al, bl = a - ah, b - bh
+        if one_pass_round is not None:
+            al, bl = one_pass_round(al), one_pass_round(bl)
+        return ah @ bh + ah @ bl + al @ bh
     if one_pass_round is not None:
         return one_pass_round(a) @ one_pass_round(b)
-    if not split:
-        return a @ b
-    ah = bf16_rn(a)
-    bh = bf16_rn(b)
-    return ah @ bh + ah @ (b - bh) + (a - ah) @ bh
+    return a @ b
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from admmnet_tpu_torch.ops.linalg import complex_matmul
+
 
 def chebyshev_nodes(n: int) -> np.ndarray:
     """First-kind Chebyshev nodes x_j = cos(pi (j + 1/2) / n), j = 0..n-1."""
@@ -70,14 +72,18 @@ def apply_spectral_filter(
 
     ``f`` maps a real (..., n_nodes) tensor of eigenvalue locations to
     filter values.  ``degree`` = number of Chebyshev terms = number of
-    matrix products.  Every product is fp32; ``precision="default"`` (the
-    TPU's one-pass tier in the JAX package) adds the Hermitian
-    re-projection of every iterate and of the result, ``"highest"`` does
-    not.
+    matrix products.  ``precision="default"`` (``Precision.DEFAULT`` in the
+    JAX package, one-pass bf16 on the TPU) adds the Hermitian re-projection
+    of every iterate and of the result, and on the card makes each product
+    one-pass as the peak search's refine does: the real and imaginary parts
+    of both operands rounded to bf16, the exact products summed in fp32.
+    On the CPU, where DEFAULT is fp32, and with ``"highest"``, every
+    product is fp32.
     """
     if precision not in ("highest", "default"):
         raise ValueError(f"unknown precision {precision!r}")
     resym = precision == "default"
+    one_pass = resym and M.device.type == "cuda"
     m = M.shape[-1]
     r = spectral_bound(M)
     Mh = M / r.to(M.dtype)
@@ -87,11 +93,12 @@ def apply_spectral_filter(
     b1 = torch.zeros_like(M)
     b2 = torch.zeros_like(M)
     for k in range(degree - 1, 0, -1):
-        b0 = c[..., k][..., None, None].to(M.dtype) * eye + (2.0 * (Mh @ b1) - b2)
+        b0 = (c[..., k][..., None, None].to(M.dtype) * eye
+              + (2.0 * complex_matmul(Mh, b1, one_pass) - b2))
         if resym:
             b0 = _herm(b0)
         b1, b2 = b0, b1
-    out = c[..., 0][..., None, None].to(M.dtype) * eye + (Mh @ b1 - b2)
+    out = c[..., 0][..., None, None].to(M.dtype) * eye + (complex_matmul(Mh, b1, one_pass) - b2)
     if resym:
         out = _herm(out)
     return (out * r.to(M.dtype)).to(M.dtype)

@@ -49,3 +49,17 @@ def fro_norm(M: torch.Tensor) -> torch.Tensor:
 
 def vec_norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.abs(v) ** 2, dim=-1))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Complex x with its real and imaginary parts rounded to bf16."""
+    def rn(v):
+        return v.to(torch.bfloat16).to(v.dtype)
+    return torch.complex(rn(x.real), rn(x.imag))
+
+
+def complex_matmul(a: torch.Tensor, b: torch.Tensor, one_pass: bool) -> torch.Tensor:
+    """a @ b of complex tensors: one-pass (the real and imaginary parts of
+    both operands rounded to bf16, the exact products summed in fp32, as
+    ``Precision.DEFAULT`` on the MXU) or fp32."""
+    return _bf16(a) @ _bf16(b) if one_pass else a @ b

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from admmnet_tpu_torch.core.config import PeakSearchConfig
 from admmnet_tpu_torch.ops.atoms import delay_steering, doppler_steering
+from admmnet_tpu_torch.ops.linalg import complex_matmul
 from admmnet_tpu_torch.peaks.spectrum import spectrum_grid
 
 
@@ -56,17 +57,8 @@ def _local_max_mask(Z: torch.Tensor) -> torch.Tensor:
     return Z >= pooled
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """Complex x with its real and imaginary parts rounded to bf16."""
-    def rn(v):
-        return v.to(torch.bfloat16).to(v.dtype)
-    return torch.complex(rn(x.real), rn(x.imag))
-
-
-def refine_product(a: torch.Tensor, b: torch.Tensor, one_pass: bool) -> torch.Tensor:
-    """a @ b of complex tensors, one-pass (operands rounded to bf16) or
-    float32."""
-    return _bf16(a) @ _bf16(b) if one_pass else a @ b
+# a @ b of the refine, one-pass (operands rounded to bf16) or float32
+refine_product = complex_matmul
 
 
 def _refine(phi, tau0, f0, cfg: PeakSearchConfig, Nb: int, Nd: int):

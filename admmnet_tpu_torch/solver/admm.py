@@ -225,9 +225,11 @@ def admm_solve_fixed(y, b, sigma, num_iters: int, lambda_val: float = 1.0,
     ``fused_fast`` / ``fused_exact`` run the fused solve on the batch
     flattened to one axis (the JAX package falls back to the loop for a
     batch of rank > 1 instead; the port's kernel takes any flattened
-    batch).  At a lifted side n + 1 above 128 they warn and run the loop
-    with ``g_update="polar_fast"`` (``"polar"`` for fused_exact), as the
-    JAX package does; the kernel's planes hold at most 128.
+    batch).  At a lifted side n + 1 above 128, or with
+    ``phi_update="ref_dense"`` (the fused solve implements ``"diag"``),
+    they warn and run the loop with ``g_update="polar_fast"`` (``"polar"``
+    for fused_exact), as the JAX package does off the TPU; the kernel's
+    planes hold at most 128.
     """
     opts = opts or ADMMOptions()
     y = torch.as_tensor(y).to(COMPLEX)
@@ -236,20 +238,19 @@ def admm_solve_fixed(y, b, sigma, num_iters: int, lambda_val: float = 1.0,
     n = y.shape[-1]
     dev = y.device
 
-    if opts.g_update in ("fused_fast", "fused_exact") and n + 1 > MAX_SIDE:
+    if opts.g_update in ("fused_fast", "fused_exact") and (
+            n + 1 > MAX_SIDE or opts.phi_update != "diag"):
         fallback = "polar" if opts.g_update == "fused_exact" else "polar_fast"
+        reason = (f"lifted size {n + 1} > {MAX_SIDE}" if n + 1 > MAX_SIDE else
+                  f"phi_update={opts.phi_update!r} (the fused solve implements 'diag')")
         warnings.warn(
             f"g_update={opts.g_update!r} falling back to the scan path with "
-            f"g_update={fallback!r}: lifted size {n + 1} > {MAX_SIDE}",
+            f"g_update={fallback!r}: {reason}",
             stacklevel=2,
         )
         opts = dataclasses.replace(opts, g_update=fallback)
 
     if opts.g_update in ("fused_fast", "fused_exact"):
-        if opts.phi_update != "diag":
-            raise NotImplementedError(
-                f"g_update={opts.g_update!r} implements phi_update='diag' only"
-            )
         yb = y.reshape(-1, n).contiguous()
         bb = torch.broadcast_to(b, y.shape).reshape(-1, n).contiguous()
         s = torch.broadcast_to(

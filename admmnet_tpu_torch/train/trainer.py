@@ -56,6 +56,7 @@ from admmnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoi
 from admmnet_tpu_torch.train.losses import basic_anm_loss, phi_alignment_loss
 from admmnet_tpu_torch.train.metrics_io import MetricsWriter
 from admmnet_tpu_torch.train.schedules import sgdr_schedule
+from admmnet_tpu_torch.utils.retry import device_retry
 
 # position-matched test-metric tolerance (peaks/metrics.py, eval_net)
 MATCH_TOL = 0.05
@@ -239,7 +240,7 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
                 schedule: Callable[[int], float], grad_clip: float = 1.0,
                 assignment: str = "slot", spectral_weight: float = 0.0,
                 conf_threshold: float = 0.5, ddp: Optional[torch.nn.Module] = None,
-                group=None):
+                group=None, log_fn: Callable[[str], None] = print):
     """(train_step, eval_step) of ``model``.
 
     ``mode``: "e2e" (ADMMNet + ``basic_anm_loss``) or "phi"
@@ -255,6 +256,14 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
     the gradients are averaged over the ranks), ``group`` the fleet's
     process group: ``eval_step`` then returns the loss and metrics of the
     global minibatch (the sums all-reduced before the ratios are taken).
+
+    Device retries (``utils.retry.device_retry``, as the JAX trainer wraps
+    its jitted steps): in one process the eval step and the train step up
+    to ``optimizer.step()`` (zeroing the gradients, forward, backward,
+    clipping) are retried on a transient device failure, each retry
+    logged through ``log_fn``; the update itself is not, so a retry never
+    applies it twice.  Under a fleet (``group``) nothing is retried: a rank
+    that repeats a collective would wait on ranks that have moved on.
     """
     params = [p for g in optimizer.param_groups for p in g["params"]]
     world = dist.get_world_size(group) if group is not None else 1
@@ -270,11 +279,12 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
         total, _ = phi_alignment_loss(phi, batch["phi"])
         return total, {}
 
-    def train_step(batch, step: int):
-        model.train()
-        lr = schedule(step)
-        for g in optimizer.param_groups:
-            g["lr"] = g["scale"] * lr
+    def retried(fn):
+        return fn if group is not None else device_retry(fn, log_fn=log_fn)
+
+    @retried
+    def gradients(batch):
+        """The clipped gradients of the batch's loss; the loss."""
         optimizer.zero_grad(set_to_none=True)
         total, _ = loss_and_aux(ddp if ddp is not None else model, batch)
         total.backward()
@@ -282,8 +292,16 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         clip_by_global_norm_(params, grad_clip)
-        optimizer.step()
         return total.detach()
+
+    def train_step(batch, step: int):
+        model.train()
+        lr = schedule(step)
+        for g in optimizer.param_groups:
+            g["lr"] = g["scale"] * lr
+        total = gradients(batch)
+        optimizer.step()
+        return total
 
     def global_sums(*vals):
         """The values summed over the ranks (float64 on the wire, returned
@@ -294,6 +312,7 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
         dist.all_reduce(packed, group=group)
         return tuple(p.to(v.dtype) for p, v in zip(packed, vals))
 
+    @retried
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
@@ -533,7 +552,7 @@ def _train_loop(model_cls, mcfg, tcfg, train_data, val_data, test_data, workdir,
     train_step, eval_step = build_steps(
         model, optimizer, mode, schedule, grad_clip=tcfg.grad_clip,
         assignment=tcfg.assignment, spectral_weight=tcfg.spectral_weight,
-        conf_threshold=tcfg.conf_threshold, ddp=ddp, group=group)
+        conf_threshold=tcfg.conf_threshold, ddp=ddp, group=group, log_fn=log_fn)
 
     step = start_epoch * steps_per_epoch
     epochs_run = start_epoch

@@ -14,7 +14,7 @@ and holding each kernel against its plain PyTorch version:
 - training (phases 14-17): the Clenshaw training forward K5 and reversible
   backward K6 (tensor-core products, as K4's and K2/K3's; phase 2 counts
   the HMMA instructions of every instantiation) against their plain
-  versions, three recipe steps of net-3
+  versions at the card's tiers, three recipe steps of net-3
   against the JAX package's golden steps, then ``generate_dataset`` and
   ``train_cli`` with the net-3 recipe (10k fixed-SNR-20 scenes, 15 epochs)
   on the card through the native minibatch loader, scored against the
@@ -44,11 +44,18 @@ and holding each kernel against its plain PyTorch version:
   labels' test split.
 
 Precision: the kernels run the JAX package's tiers (README, "PyTorch/CUDA
-port"): K1's low schedule steps one-pass bf16, K2's and K3's low and
-(``final_hi`` off) closing products one-pass TF32, every other product
+port"): K1's low schedule steps and K4/K5's Clenshaw products (the closing
+one too without ``final_hi``) one-pass bf16, K2's and K3's low and
+(``final_hi`` off) closing products one-pass TF32, K6's products the 3-pass
+split-bf16 product (``bwd_three_pass``, the default), every other product
 fp32-faithful.  The fast modes are held to the plain versions' one-pass
-emulation (``one_pass=True``; phases 3, 4, 18, 19, 21, 25) and their first
-low step tightly (phases 3, 4); the all-fp32 modes to the plain versions.
+emulation (``one_pass=True``; phases 3, 4, 10, 14, 18, 19, 21, 25) and
+their first low step or real product tightly (phases 3, 4, 10); K6 to its
+rounded split emulation (phase 14); the learned gates against the JAX
+goldens (fp32 on a CPU) at limits re-based on the tier's CPU emulation
+(tests/golden/cheb_tier_gap.py), and the training steps also against that
+emulation run on the CPU (phases 15, 27); the all-fp32 modes to the plain
+versions.
 
 Every phase prints one line with its numbers and the tolerance it is held
 to; any failure raises (non-zero exit) before the last line.  The last line is the JSON status line
@@ -141,12 +148,24 @@ B_PAR_SOLVE = 8192
 PAR_STEPS = 20  # steps of the DDP runs: 20 epochs of one global batch each
 PAR_BATCH = 256  # global batch (128 a rank at world 2)
 PAR_LOSS_RTOL = 5e-4  # tests/test_mesh_training.py's mesh-vs-single tolerance
+# The validation loss after DDP's first step vs one process's: the step
+# applies the first gradient, which at the card's one-pass tier moves with
+# the order of the sums (PAR_GRAD_RTOL); measured on an H100 DDP 8.5e-3 and
+# one process on the reordered batch 2.0e-2 (at fp32 both sat within
+# PAR_LOSS_RTOL); the limit is ~2.5x that control.
+PAR_VAL1_RTOL = 5e-2
 PAR_ZLAYER_TOL = 1e-5  # the ZLayer under 2 ranks vs the whole batch (fp32 sums reordered)
-# DDP's first gradient vs one process's: fp32 sums in another order through
-# 10 unrolled layers (the phase prints a reordering of the batch in one
-# process beside it); a rank left with its half batch's gradient, without
-# the all-reduce, lands percents away
-PAR_GRAD_RTOL = 1e-3
+# DDP's first gradient vs one process's: sums in another order through 10
+# unrolled layers (the phase prints a reordering of the batch in one process
+# beside it).  With the Clenshaw products at fp32 this sat at 2.7e-5 (limit
+# 1e-3); at the card's one-pass tier the spectrum head's discontinuous
+# top-k and argmax picks turn the forward's ~4e-3 rounding into a gradient
+# that moves with the order of the sums: measured on an H100 DDP 3.39e-2
+# and the reordered batch in one process 3.97e-2, so the limit is ~2.5x
+# that control.  The phase checks that the gate still
+# sees a rank left with its half batch's gradient (no all-reduce): that
+# gradient must sit beyond the limit.
+PAR_GRAD_RTOL = 0.1
 PAR_SOLVE_RTOL = 1e-6  # the sharded solve when it is not bitwise
 PAR_TIMEOUT = 600  # seconds a fleet may take before it is killed
 # The phi-regression route (27): RESULTS.md section 2's recipe.  The data
@@ -177,7 +196,8 @@ PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 # K4/K5's body (csrc/cheb_filter.cu), named in the kernels summary
 CHEB_FWD_BODY = ("one thread-block cluster of P / 16 CTAs per matrix, bands in shared "
-                 "memory, 3xTF32 mma.sync products (tc_product.cuh)")
+                 "memory, one-pass bf16 mma.sync products (tc_product.cuh; the closing "
+                 "product 3xTF32 with final_hi)")
 # K1's and K7's body (csrc/polar_cta.cuh), named in the kernels summary
 POLAR_BODY = ("one CTA per matrix or instance (a cluster of two at P = 128), the planes in "
               "shared memory, each whole product a mma.sync product of the CTA "
@@ -270,36 +290,66 @@ K7_POLAR_TOL = 5e-4
 #   4.30e-3 / 3.06e-3 at hi_steps 0 / 1 with the FMA sums).
 K1_BF16_EIGH_TOL = 8e-3
 K1_BF16_VS_FP32_MIN = 1e-3  # median per-matrix distance from the fp32 store
-# - K4 vs its plain version, max per-matrix relative error: both fp32, the
-#   sums in another order through 48 dependent Clenshaw steps; ~10x the
-#   measured 5.6e-6 (spiked matrices; 5.7e-7 random) on an H100.
-K4_PLAIN_TOL = 5e-5
+# - K4 (and K5's carries) vs its one-pass emulation (the plain version with
+#   one_pass: the same bf16 operands, fp32 sums in the plain version's
+#   order), per-matrix relative error.  The first real product (degree 3):
+#   FIRST_STEP_TOL (measured on an H100: median 3.0e-8, max 6.9e-5).  The
+#   whole recurrence: a sum in another order flips a bf16 rounding now and
+#   then and the later steps carry it; tests/one_pass_spread.py measured on
+#   an H100 at B = 64 the kernel median 7.7e-4 / max 2.1e-3 (carries 3.5e-3)
+#   from the emulation, where the emulation sits median 7.4e-4 / max 2.2e-3
+#   (carries 3.0e-3) from itself with float64 sums, and the fp32 tier sits
+#   median 3.8e-3 / max 7.9e-3 away.  The limits lie at ~2-3x the spread,
+#   below the fp32 tier's median.
+K4_ONE_PASS_TOL = {"median": 1.5e-3, "max": 6e-3}
+K5_ONE_PASS_TOL = 1e-2  # the carries' max
 # - net-3 trunk phi vs the JAX golden (fp32 on the CPU), per-scene relative
-#   error: fp32 sums in another order through three layers; ~10x the
-#   measured median 1.9e-6 / max 4.2e-6 on an H100.
-NET3_PHI_TOL = {"median": 2e-5, "max": 5e-5}
+#   error, with K4's one-pass bf16 products: tests/golden/cheb_tier_gap.py
+#   runs net-3 on the CPU at the card's tier (the emulation) and measures
+#   median 4.17e-3 / max 7.62e-3 from the golden (float64 sums: 4.18e-3 /
+#   7.51e-3), F1 equal to the golden's; limits ~2.5x that.  The fp32 gate
+#   (2e-5 / 5e-5; measured 1.9e-6 / 5.2e-6) holds the plain path on the CPU
+#   (tests/test_torch_net3_golden.py).
+NET3_PHI_TOL = {"median": 1e-2, "max": 2e-2}
 # - eval_net on the card vs on the CPU: the same detections up to one
 #   flipped match (1 / 384 targets = 0.0026), RMSEs over the same pairs.
 CLI_DET_TOL = 0.005
 CLI_RMSE_TOL = 1e-3
-# - K5's carries and K6's (Mbar, cbar) vs their plain versions on the same
-#   inputs, and K6's Hermitian-projected Mbar vs torch autograd through the
-#   plain forward, max per-matrix relative error: fp32 sums in another
-#   order through 47 forward steps and 46 rebuilt ones.
-#   ~10x the measured on an H100 with K6's fp32 SIMT products: carries
-#   1.2e-5; K6 Mbar 1.1e-6, cbar 4.3e-6; vs autograd 8.8e-7 / 4.7e-6.  K6's
-#   3xTF32 tensor-core products (~2^-22 per product) are held to the same
-#   limits.
-K5_PLAIN_TOL = 1e-4
+# - K6 vs its plain version on the same inputs (K5's carries), max
+#   per-matrix relative error; the median of Mbar too for the split tier.
+#   Without three_pass (3xTF32, fp32-faithful) vs the fp32 plain version:
+#   ~10x the fp32 sums' spread measured on an H100 (Mbar 1.1e-6, cbar
+#   4.3e-6).  With three_pass (the default) vs the rounded split emulation
+#   (three_pass and one_pass: the residuals rounded to bf16 as the MXU
+#   rounds them): measured on an H100 Mbar median 2.6e-6 / max 7.5e-6, cbar
+#   max 2.7e-5 (the emulation vs itself with float64 sums: Mbar 2.0e-6 /
+#   4.0e-6); the split with fp32 residuals sits at median 8.6e-6, which the
+#   median limit tells apart.
 K6_PLAIN_TOL = {"Mbar": 2e-5, "cbar": 5e-5}
-K6_AUTOGRAD_TOL = 5e-5
+K6_SPLIT_TOL = {"Mbar": 2e-5, "cbar": 6e-5, "Mbar_median": 5e-6}
+# - K5 + K6 through autograd vs torch autograd through the fp32 plain
+#   forward, Hermitian part of Mbar and cbar, max per-matrix relative
+#   error: the one-pass forward's states differ from the fp32 ones at
+#   ~1e-3, and the reversible backward rebuilds them from its carries;
+#   tests/golden/cheb_tier_gap.py measures the card's tiers emulated on the
+#   CPU at these inputs: Mbar 8.5e-3, cbar 2.3e-5 (the fp32 tier 6.8e-7 /
+#   1.0e-6); limits ~2.5x that.
+K6_AUTOGRAD_TOL = {"Mbar": 2e-2, "cbar": 6e-5}
 # - three net-3 recipe steps vs the JAX golden (fp32 on the CPU): relative
 #   error of each step's loss, and of the parameters' change over the steps
 #   (||p - p_jax|| / ||p_jax - p_init||) over all leaves, which Adam's
-#   normalization amplifies where a gradient is near zero; ~14x and ~8x
-#   the measured 7.3e-8 and 9.0e-3 on an H100.
-GOLDEN_LOSS_TOL = 1e-6
-GOLDEN_PARAM_TOL = 0.07
+#   normalization amplifies where a gradient is near zero.  At the card's
+#   tiers (tests/golden/cheb_tier_gap.py, the emulation on the CPU) the
+#   steps sit 4.9e-6 / 6.0e-4 / 1.9e-6 and 0.130 from the golden (the fp32
+#   plain path 0 and 4.9e-3; on an H100 at 3xTF32 7.3e-8 and 9.0e-3);
+#   limits ~2.5x that.  The steps are also held to the same steps run on
+#   the CPU at the card's tiers (chip_smoke.card_tier_on_cpu): two
+#   summation orders of that arithmetic (float32 vs float64 sums) sit
+#   1.3e-6 / 3.9e-6 / 3.9e-4 and 0.032 apart; limits ~2.5-3x that.
+GOLDEN_LOSS_TOL = 1.5e-3
+GOLDEN_PARAM_TOL = 0.3
+GOLDEN_EMUL_LOSS_TOL = 1e-3
+GOLDEN_EMUL_PARAM_TOL = 0.1
 # - the training run: the port's net-3 trained on the card from scratch vs
 #   the committed net-3 checkpoint, matched test F1 on the same split; and
 #   the test loss, the quantity training minimizes, must close at least
@@ -311,24 +361,25 @@ TRAIN_LOSS_GAP_CLOSED = 0.5
 # - the phi route's labels vs the complex128 eigh solve of the same scenes:
 #   the fused_exact contract (EXACT_NMSE_TOL) on the median scene.
 PHI_LABEL_NMSE_TOL = EXACT_NMSE_TOL
-# - three recipe steps of the net-10 phi net vs the JAX golden (fp32 on the
-#   CPU).  Step 1's loss is one forward from the shared init: phase 15's
-#   GOLDEN_LOSS_TOL (the port's plain path on the CPU: 3.9e-7).  After an
-#   update the ten layers do not hold phase 15's limits: Adam's
-#   normalization turns the last bits of near-zero gradients (h_1's
-#   correction MLP takes 71% of the parameter error) into whole steps, and
-#   lr 5e-3 leaves step 3 steep (lr x 1.05 doubles its loss).  On the CPU the
-#   port's plain path sits 4.8e-7 / 6.8e-6 (steps 2 / 3) and 0.057
-#   (parameters) from JAX; the same port with each batch reordered, which
-#   changes only the order of the sums, sits 9.6e-8 / 2.2e-5 and 2.4e-5 and
-#   0.092-0.098.  So steps 2-3 are held at ~4x that control: losses 1e-4
-#   (lr x 1.05: 1.0e-4 / 0.99), parameter change error 0.3 (3x the
-#   control; it does not see a 5% lr error, 0.094, and stays a coarse gate).
-#   tests/golden/phinet_golden_gap.py prints these CPU numbers.  Measured
-#   on an H100: 4.8e-7, 0, 2.1e-5 and 0.097, where the reordered control
-#   sits.
-PHI_GOLDEN_LOSS_TOL = 1e-4
-PHI_GOLDEN_PARAM_TOL = 0.3
+# - three recipe steps of the net-10 phi net.  Step 1's loss, one forward
+#   from the shared init, vs the JAX golden (fp32 on the CPU): at the card's
+#   tiers ten layers of one-pass Clenshaw products move it 4.2e-2 (the
+#   emulation on the CPU, tests/golden/cheb_tier_gap.py; float64 sums
+#   4.3e-2; the fp32 plain path 3.9e-7); limit ~2.4x that.  After an
+#   update the steps cannot be held to the fp32 golden at this tier: lr
+#   5e-3 leaves step 3 steep (lr x 1.05 doubles its loss at fp32), and the
+#   tier's 4% first loss turns into 1.3e-2 at step 2 and 0.99 at step 3
+#   (step 3's loss is 8.2e-4 against the golden's ~8e-2) and a parameter
+#   change error of 4.05, the same for both summation orders of the
+#   emulation.  So the card's steps are held to the same steps run on the
+#   CPU at the card's tiers (chip_smoke.card_tier_on_cpu), where two
+#   summation orders of that arithmetic sit 6.2e-4 / 3.3e-4 / 0.125 apart
+#   (steps 1-3) and 0.32 in parameters: limits ~3x that.  (At fp32 the
+#   steps were held to the golden at 1e-4 and 0.3; the CPU's fp32 gates of
+#   the phi route's training are tests/test_torch_phi_train.py.)
+PHI_GOLDEN_STEP1_TOL = 0.1
+PHI_EMUL_LOSS_TOL = (2e-3, 1e-3, 0.4)
+PHI_EMUL_PARAM_TOL = 1.0
 
 
 def log(msg: str) -> None:
@@ -410,9 +461,9 @@ def cheb_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
 
 
 def cheb_bwd_flops(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
-    """Useful fp32 operations of K6: 3 degree - 5 Karatsuba products per
-    matrix."""
-    return B * (3 * degree - 5) * 3 * 2.0 * m**3
+    """Useful operations of K6: 3 degree - 3 Karatsuba products per matrix
+    (with the rebuilt b_degree's term)."""
+    return B * (3 * degree - 3) * 3 * 2.0 * m**3
 
 
 def cheb_bwd_bytes(B: int, m: int = 101, degree: int = CHEB_DEGREE) -> float:
@@ -446,25 +497,12 @@ def k4_inputs(B: int, dev):
 
 
 def cheb_bounds(B: int, carries: bool):
-    """(3xTF32 bound ms, what bounds it, fp32 SIMT bound ms) of K4, or of
-    K5 (which also writes the four carry planes) at batch B."""
+    """(one-pass bf16 bound ms, what bounds it, 3xTF32 bound ms) of K4, or of
+    K5 (which also writes the four carry planes) at batch B: every product
+    one-pass bf16 (final_hi off), against the 3xTF32 tier's."""
     nbytes = cheb_bytes(B) + (B * 4 * 101 * 101 * 4 if carries else 0)
-    b, by = tf32x3_bound(cheb_flops(B), nbytes)
-    return b, by, bound(cheb_flops(B), nbytes)[0]
-
-
-def fp64_distances(kc, M, c, carries):
-    """Max per-matrix relative distance of K5's carries (padded planes) and
-    of the fp32 plain version's from the fp64 plain evaluation, the last
-    (zero) matrix left out: how far from fp32-faithful the 3xTF32 products
-    leave the recurrence, beside fp32's own distance."""
-    m = M.shape[-1]
-    _, p32 = kc.cheb_filter_matrices_plain_with_residuals(M, c, CHEB_DEGREE)
-    _, p64 = kc.cheb_filter_matrices_plain_with_residuals(M.to(torch.complex128), c.double(),
-                                                          CHEB_DEGREE)
-    dk = max(float(rel_err(k[:-1, :m, :m].double(), q[:-1]).max()) for k, q in zip(carries, p64))
-    dp = max(float(rel_err(p[:-1].double(), q[:-1]).max()) for p, q in zip(p32, p64))
-    return dk, dp
+    b, by = bound(0.0, nbytes, cheb_flops(B))
+    return b, by, tf32x3_bound(cheb_flops(B), nbytes)[0]
 
 
 def k6_inputs(kc, B: int, dev):
@@ -769,9 +807,10 @@ def param_change_error(after: dict, golden_after: dict, init: dict) -> float:
     return (num / den) ** 0.5
 
 
-def golden_steps(dev):
+def golden_steps(dev, state_out=None):
     """Three net-3 recipe steps on ``dev`` from the JAX golden's init, on the
-    golden's batches: (losses, golden losses, parameter change error)."""
+    golden's batches: (losses, golden losses, parameter change error); the
+    parameters after the steps (on the CPU) into ``state_out``, if given."""
     from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
     from admmnet_tpu_torch.models import ADMMNet
     from admmnet_tpu_torch.train.checkpoint import msgpack_decode
@@ -800,7 +839,72 @@ def golden_steps(dev):
         batch = {k: v[i * GOLDEN_BATCH:(i + 1) * GOLDEN_BATCH] for k, v in raw.items()}
         losses.append(float(step(batch_to_device(batch, dev), i)))
     err = param_change_error(model.state_dict(), after_gold, init)
+    if state_out is not None:
+        state_out.update({k: v.cpu() for k, v in model.state_dict().items()}, init=init)
     return np.array(losses), np.asarray(gold["losses"], np.float64), err
+
+
+def net3_vs_golden(dev) -> dict:
+    """The committed net-3 (runs/train_net3_r05) on ``dev`` on the 512
+    random-SNR scenes as one batch, against the JAX package's golden
+    output: the model and its config, the scenes, the port's and the
+    golden's match_peaks stats (``st``, ``gst``), the predictions, and the
+    per-scene relative error of phi (its median and max)."""
+    from admmnet_tpu_torch.cli.eval_net import evaluate_e2e
+    from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.peaks import match_peaks
+    from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
+
+    with np.load(RANDOM_SCENES) as d:
+        raw = {k: d[k] for k in d.files}
+    with np.load(GOLDEN_NET3) as d:
+        gold = {k: d[k] for k in d.files}
+    order = np.argsort(-gold["conf"], axis=-1)
+    rows = np.arange(len(order))[:, None]
+    gst = match_peaks(gold["tau"][rows, order], gold["f"][rows, order], raw["tau"],
+                      raw["f"], 0.05, 0.05, pred_valid=gold["conf"][rows, order] > 0.5)
+    state, _ = restore_checkpoint(NET3)
+    cfg = options_from_jax(json.loads((NET3 / "config.json").read_text())["model"])
+    model = ADMMNet(cfg)
+    model.load_state_dict(params_from_jax(state["params"]["params"], cfg))
+    model = model.to(dev).eval()
+    y, b, s = to_dev(dev, raw["y"], raw["b"], raw["sigma"])
+    st, pred = evaluate_e2e(model, y, b, s, raw["tau"], raw["f"])
+    e = np.linalg.norm(pred["phi"] - gold["phi"], axis=-1) / np.linalg.norm(gold["phi"], axis=-1)
+    return {"model": model, "cfg": cfg, "raw": raw, "st": st, "gst": gst, "pred": pred,
+            "med": float(np.median(e)), "mx": float(e.max())}
+
+
+@contextlib.contextmanager
+def card_tier_on_cpu():
+    """The Clenshaw kernels' CPU dispatches at the card's tiers: the plain
+    forward with ``one_pass=True`` (K4/K5's one-pass bf16 products) and the
+    plain backward with ``three_pass=True, one_pass=True`` (K6's split-bf16
+    products with rounded residuals), so a run on CPU tensors computes the
+    card's arithmetic with its sums in another order."""
+    from admmnet_tpu_torch.kernels import cheb_filter as kc
+
+    fwd, bwd = kc.cheb_filter_matrices_plain_with_residuals, kc.cheb_bwd_plain
+
+    def fwd_card(M, coeffs, degree, one_pass=False, final_hi=False):
+        return fwd(M, coeffs, degree, True, final_hi)
+
+    def bwd_card(M, coeffs, carries, Y, degree, three_pass=False, one_pass=False):
+        return bwd(M, coeffs, carries, Y, degree, True, True)
+
+    kc.cheb_filter_matrices_plain_with_residuals, kc.cheb_bwd_plain = fwd_card, bwd_card
+    try:
+        yield
+    finally:
+        kc.cheb_filter_matrices_plain_with_residuals, kc.cheb_bwd_plain = fwd, bwd
+
+
+def state_distance(a: dict, b: dict) -> float:
+    """||a - b|| / ||b - init|| over every leaf of two ``state_out`` dicts
+    of the same steps (``init`` from b)."""
+    init = b["init"]
+    return param_change_error({k: a[k] for k in init}, {k: b[k] for k in init}, init)
 
 
 def run_cli(main, argv) -> dict:
@@ -1020,13 +1124,15 @@ def warm_train_args() -> list:
             str(t["seed"]), "--epochs", str(WARM_EPOCHS)]
 
 
-def phi_golden_steps(dev, order_seed=None, lr_scale: float = 1.0):
+def phi_golden_steps(dev, order_seed=None, lr_scale: float = 1.0, state_out=None):
     """Three phi-route recipe steps on ``dev`` from the JAX golden's init,
     on the golden's scenes and labels: (losses, golden losses, parameter
     change error, each leaf's share of that error's square).  For the
     controls of tests/golden/phinet_golden_gap.py: ``order_seed``
     reorders each batch (only the order of the sums changes), ``lr_scale``
-    scales the learning rate (a fault the gate must see)."""
+    scales the learning rate (a fault the gate must see).  The parameters
+    after the steps (on the CPU) go into ``state_out``, if given, with the
+    init under the key ``init``."""
     from admmnet_tpu_torch.core.convert import params_from_jax
     from admmnet_tpu_torch.models import PhiEstADMMNet
     from admmnet_tpu_torch.train.checkpoint import msgpack_decode
@@ -1056,6 +1162,8 @@ def phi_golden_steps(dev, order_seed=None, lr_scale: float = 1.0):
         losses.append(float(step(batch_to_device(batch, dev), i)))
     after = model.state_dict()
     err = param_change_error(after, after_gold, init)
+    if state_out is not None:
+        state_out.update({k: v.cpu() for k, v in after.items()}, init=init)
     sq = {k: float(torch.sum((after[k].cpu() - after_gold[k]) ** 2)) for k in init}
     total = sum(sq.values()) or 1.0
     return (np.array(losses), np.asarray(gold["losses"], np.float64), err,
@@ -1118,16 +1226,18 @@ class Smoke:
             log(f"[2 {key} SASS] {demangle(name)}: {hmma} HMMA ({bf16} bf16), {ldl} LDL / "
                 f"{stl} STL (local memory)")
         hmma = {v: [h for k, h, _, _, _ in found.values() if k == v] for v in SASS_KEYS.values()}
-        # K4/K5 and K6 at P = 112, 128; K2/K3: 5 instantiations and 7 ablate
-        # variants at each of P = 112, 128; K1 with and without bf16_store
-        # and K7 at each of P = 112, 128
-        check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3", "K1", "K7")] == [2, 2, 24, 4, 2]
+        # K4/K5 at P = 112, 128; K6 at each of P = 112, 128 in both tiers;
+        # K2/K3: 5 instantiations and 7 ablate variants at each of P = 112,
+        # 128; K1 with and without bf16_store and K7 at each of P = 112, 128
+        check([len(hmma[k]) for k in ("K4/K5", "K6", "K2/K3", "K1", "K7")] == [2, 4, 24, 4, 2]
               and min(sum(hmma.values(), [])) > 0,
               "a tensor-core kernel's SASS has no HMMA instruction")
-        # K1's low steps run bf16 m16n8k16 products; K7 is all fp32
-        check(all(v[4] > 0 for v in found.values() if v[0] == "K1")
-              and all(v[4] == 0 for v in found.values() if v[0] != "K1"),
-              "K1's one-pass products are not bf16 HMMA, or another kernel has some")
+        # bf16 m16n8k16 products: K1's low steps, K4/K5's Clenshaw steps and
+        # K6's split tier (tcp::Prec 4, SPLIT_BF16); K6's 3xTF32 tier, K2/K3
+        # and K7 have none
+        check(all((v[4] > 0) == (v[0] in ("K1", "K4/K5") or "Prec)4" in demangle(n)
+                                 or "PrecE4E" in n) for n, v in found.items()),
+              "the bf16 HMMA are not where the one-pass and split-bf16 tiers are")
 
     # 3 -------------------------------------------------------------------
     def k1_vs_plain(self):
@@ -1459,71 +1569,62 @@ class Smoke:
 
     # 10 ------------------------------------------------------------------
     def k4_vs_plain(self):
+        """K4 against its emulation (the plain version with ``one_pass``),
+        with and without ``final_hi``, and its first real product."""
         from admmnet_tpu_torch.kernels.cheb_filter import (
             cheb_filter_matrices,
             cheb_filter_matrices_plain,
             cheb_filter_planes,
         )
 
-        rng = np.random.default_rng(2)
         m, D = 101, CHEB_DEGREE
-        M = random_hermitian(rng, B_K4, m, self.dev)
-        # second half: a dominant eigenvalue, so that A = M/||M||_F has a
-        # spectral radius near 1, as the GLayer's lifted matrices do
-        v = torch.from_numpy(rng.normal(size=(B_K4 // 2, m)) + 1j * rng.normal(size=(B_K4 // 2, m)))
-        v = (v / torch.linalg.norm(v, dim=-1, keepdim=True)).to(torch.complex64).to(self.dev)
-        M[B_K4 // 2:] += 300.0 * v[:, :, None] * v.conj()[:, None, :]
-        M[-1] = 0  # a zero matrix
-        c = torch.from_numpy((rng.normal(size=(B_K4, D)) * 0.3).astype(np.float32)).to(self.dev)
-        Gk = cheb_filter_matrices(M, c, D)
-        Gp = cheb_filter_matrices_plain(M, c, D)
-        Gr, Gi = cheb_filter_planes(M, c, D)
-        torch.cuda.synchronize()
-        check(bool(torch.all(torch.isfinite(torch.view_as_real(Gk)))), "K4: non-finite output")
-        e = rel_err(Gk[:-1], Gp[:-1])
+        M, c, _ = cheb_inputs(np.random.default_rng(2), B_K4, self.dev)
         half = B_K4 // 2
-        e_gue, e_spike = float(e[:half].max()), float(e[half:].max())
-        z = Gk[-1]
-        zero_ok = bool(torch.equal(z, Gp[-1])) and bool(torch.all(z - torch.diag(z.diagonal()) == 0))
-        pad_ok = all(bool(torch.all(X[:, m:, :] == 0)) and bool(torch.all(X[:, :, m:] == 0))
-                     for X in (Gr, Gi))
-        self.kernels["K4"] = {"max_abs_err": float((Gk - Gp).abs().max())}
-        log(f"[10 K4 vs plain] B={B_K4} m={m} degree {D}: max per-matrix rel err "
-            f"{max(e_gue, e_spike):.3e} (random {e_gue:.3e}, spiked {e_spike:.3e}; tol "
-            f"{K4_PLAIN_TOL:g}), median {float(e.median()):.3e}; zero matrix diagonal, "
-            f"bitwise the plain version's: {zero_ok}; padding exactly 0: {pad_ok}")
-        check(max(e_gue, e_spike) < K4_PLAIN_TOL, "K4 disagrees with its plain version")
-        check(zero_ok and pad_ok, "K4 zero matrix / padding")
+        errs = []
+        for final_hi in (False, True):
+            Gk = cheb_filter_matrices(M, c, D, final_hi)
+            Ge = cheb_filter_matrices_plain(M, c, D, one_pass=True, final_hi=final_hi)
+            G32 = cheb_filter_matrices_plain(M, c, D)
+            Gr, Gi = cheb_filter_planes(M, c, D, final_hi)
+            torch.cuda.synchronize()
+            check(bool(torch.all(torch.isfinite(torch.view_as_real(Gk)))), "K4: non-finite output")
+            e = rel_err(Gk[:-1], Ge[:-1])
+            med, e_gue, e_spike = float(e.median()), float(e[:half].max()), float(e[half:].max())
+            e32 = float(rel_err(Gk[:-1], G32[:-1]).median())
+            z = Gk[-1]
+            zero_ok = bool(torch.equal(z, Ge[-1])) and bool(
+                torch.all(z - torch.diag(z.diagonal()) == 0))
+            pad_ok = all(bool(torch.all(X[:, m:, :] == 0)) and bool(torch.all(X[:, :, m:] == 0))
+                         for X in (Gr, Gi))
+            errs.append(float((Gk - Ge).abs().max()))
+            log(f"[10 K4 vs emulation] B={B_K4} m={m} degree {D} final_hi={final_hi}, one-pass "
+                f"bf16 products: per-matrix rel err median {med:.3e} (tol "
+                f"{K4_ONE_PASS_TOL['median']:g}), max {max(e_gue, e_spike):.3e} (tol "
+                f"{K4_ONE_PASS_TOL['max']:g}; random {e_gue:.3e}, spiked {e_spike:.3e}); the fp32 "
+                f"tier's median {e32:.3e}; zero matrix diagonal, bitwise the emulation's: "
+                f"{zero_ok}; padding exactly 0: {pad_ok}")
+            check(med < K4_ONE_PASS_TOL["median"] and max(e_gue, e_spike) < K4_ONE_PASS_TOL["max"],
+                  f"K4 (final_hi={final_hi}) disagrees with its emulation")
+            check(zero_ok and pad_ok, "K4 zero matrix / padding")
+            # the first real product: degree 3 (the first step multiplies by c I)
+            G3 = cheb_filter_matrices(M, c[:, :3].contiguous(), 3, final_hi)
+            e3 = rel_err(G3[:-1], cheb_filter_matrices_plain(M, c[:, :3], 3, True, final_hi)[:-1])
+            log(f"[10 K4 first real product] degree 3 final_hi={final_hi}: median "
+                f"{float(e3.median()):.3e} (tol {FIRST_STEP_TOL['median']:g}), max "
+                f"{float(e3.max()):.3e} (tol {FIRST_STEP_TOL['max']:g})")
+            check(float(e3.median()) < FIRST_STEP_TOL["median"]
+                  and float(e3.max()) < FIRST_STEP_TOL["max"], "K4's first real product")
+        self.kernels["K4"] = {"max_abs_err": max(errs)}
 
     # 11 ------------------------------------------------------------------
     def learned_path(self):
         """The learned main path: checkpoint -> net-3 on the card -> score."""
-        from admmnet_tpu_torch.cli.eval_net import evaluate_e2e
-        from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
-        from admmnet_tpu_torch.models import ADMMNet
-        from admmnet_tpu_torch.peaks import match_peaks
-        from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
-
-        with np.load(RANDOM_SCENES) as d:
-            raw = {k: d[k] for k in d.files}
-        with np.load(GOLDEN_NET3) as d:
-            gold = {k: d[k] for k in d.files}
-        order = np.argsort(-gold["conf"], axis=-1)
-        rows = np.arange(len(order))[:, None]
-        gst = match_peaks(gold["tau"][rows, order], gold["f"][rows, order], raw["tau"],
-                          raw["f"], 0.05, 0.05, pred_valid=gold["conf"][rows, order] > 0.5)
-        state, _ = restore_checkpoint(NET3)
-        cfg = options_from_jax(json.loads((NET3 / "config.json").read_text())["model"])
-        model = ADMMNet(cfg)
-        model.load_state_dict(params_from_jax(state["params"]["params"], cfg))
-        self.net3 = model.to(self.dev).eval()
-        self.net3_cfg = cfg
-        y, b, s = to_dev(self.dev, raw["y"], raw["b"], raw["sigma"])
         t0 = time.time()
-        st, pred = evaluate_e2e(self.net3, y, b, s, raw["tau"], raw["f"])
+        r = net3_vs_golden(self.dev)
         secs = time.time() - t0
-        e = np.linalg.norm(pred["phi"] - gold["phi"], axis=-1) / np.linalg.norm(gold["phi"], axis=-1)
-        med, mx = float(np.median(e)), float(e.max())
+        raw, st, gst, pred, med, mx = (r[k] for k in ("raw", "st", "gst", "pred", "med", "mx"))
+        self.net3, cfg = r["model"], r["cfg"]
+        self.net3_cfg = cfg
         log(f"[11 learned net-3] {len(raw['y'])} random scenes, one batch, {cfg.num_layers} "
             f"layers, chebyshev GLayer (K4) degree {cfg.cheb_degree}, spectrum head: phi vs "
             f"JAX golden per-scene rel err median {med:.3e} (tol {NET3_PHI_TOL['median']:g}), "
@@ -1588,16 +1689,17 @@ class Smoke:
             M, c = k4_inputs(B, self.dev)
             calls = k4_call_ms(M, c)
             k4 = float(np.median(calls))
-            k4p = cuda_ms(lambda: cheb_filter_matrices_plain(M, c, CHEB_DEGREE), reps=3)
-            k4_bound, k4_by, k4_fp32 = cheb_bounds(B, carries=False)
+            k4p = cuda_ms(lambda: cheb_filter_matrices_plain(M, c, CHEB_DEGREE, one_pass=True),
+                          reps=3)
+            k4_bound, k4_by, k4_x3 = cheb_bounds(B, carries=False)
             log(f"[12 time K4] one GLayer call, B={B} m=101 degree {CHEB_DEGREE}: kernel "
                 f"{k4:.2f} ms, the median of {CHEB_REPS} calls {min(calls):.2f}-{max(calls):.2f} "
-                f"({cheb_flops(B) / k4 / 1e9:.2f} TFLOP/s useful), plain {k4p:.2f} ms; 3xTF32 "
-                f"tensor-core bound {k4_bound:.2f} ms ({k4_by}; {k4_bound / k4:.1%} of it), fp32 "
-                f"SIMT bound {k4_fp32:.2f} ms ({k4_fp32 / k4:.1%} of it) {tag}")
+                f"({cheb_flops(B) / k4 / 1e9:.2f} TFLOP/s useful), plain (one-pass emulation) "
+                f"{k4p:.2f} ms; one-pass bf16 bound {k4_bound:.2f} ms ({k4_by}; "
+                f"{k4_bound / k4:.1%} of it), 3xTF32 bound {k4_x3:.2f} ms {tag}")
             del M, c
         self.kernels["K4"].update(ms=k4, plain_ms=k4p, bound_ms=k4_bound, bound_by=k4_by,
-                                  library_ms=None, body=CHEB_FWD_BODY, fp32_bound_ms=k4_fp32)
+                                  library_ms=None, body=CHEB_FWD_BODY, tf32x3_bound_ms=k4_x3)
 
         B = B_TIME_NET[-1]
         reps = -(-B // len(self.raw["y"]))
@@ -1635,61 +1737,65 @@ class Smoke:
         M, c, Y = cheb_inputs(np.random.default_rng(4), B_K56, self.dev)
         G4r, G4i = kc.cheb_filter_planes(M, c, D)
         Gr, Gi, carries = kc.cheb_fwd_planes(M, c, D)
-        out_p, carries_p = kc.cheb_filter_matrices_plain_with_residuals(M, c, D)
+        out_e, carries_e = kc.cheb_filter_matrices_plain_with_residuals(M, c, D, one_pass=True)
         torch.cuda.synchronize()
         bitwise = torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
         cropped = [x[:, :m, :m] for x in carries]
-        e5 = max(float(rel_err(k[:-1], p[:-1]).max()) for k, p in zip(cropped, carries_p))
+        e5 = [rel_err(k[:-1], p[:-1]) for k, p in zip(cropped, carries_e)]
+        med5, max5 = max(float(e.median()) for e in e5), max(float(e.max()) for e in e5)
         pad_ok = all(bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
                      for x in carries)
         out_k = torch.complex(Gr[:, :m, :m], Gi[:, :m, :m])
         self.kernels["K5"] = {"max_abs_err": max(
-            float((out_k - out_p).abs().max()),
-            *(float((k - p).abs().max()) for k, p in zip(cropped, carries_p)))}
-        log(f"[14 K5 vs plain] B={B_K56} m={m} degree {D}, random and spiked: output bitwise "
-            f"K4's: {bitwise}; carries vs plain max per-matrix rel err {e5:.3e} (tol "
-            f"{K5_PLAIN_TOL:g}); carry padding exactly 0: {pad_ok}")
+            float((out_k - out_e).abs().max()),
+            *(float((k - p).abs().max()) for k, p in zip(cropped, carries_e)))}
+        log(f"[14 K5 vs emulation] B={B_K56} m={m} degree {D}, random and spiked: output "
+            f"bitwise K4's: {bitwise}; carries vs the one-pass emulation per-matrix rel err median "
+            f"{med5:.3e} (tol {K4_ONE_PASS_TOL['median']:g}), max {max5:.3e} (tol "
+            f"{K5_ONE_PASS_TOL:g}); carry padding exactly 0: {pad_ok}")
         check(bitwise, "K5's output differs from K4's")
-        check(e5 < K5_PLAIN_TOL and pad_ok, "K5's carries disagree with the plain version")
-        # small matrices with a dominant eigenvalue make the carries
-        # ill-conditioned (tests/test_torch_cuda.py::test_cheb_fwd_kernel_edges)
-        M16, c16, _ = cheb_inputs(np.random.default_rng(7), 8, self.dev, m=16)
-        d101 = fp64_distances(kc, M, c, carries)
-        d16 = fp64_distances(kc, M16, c16, kc.cheb_fwd_planes(M16, c16, D)[2])
-        log(f"[14 K5 vs fp64] carries' max per-matrix distance from the fp64 evaluation, "
-            f"kernel / fp32 plain version: m={m} {d101[0]:.3e} / {d101[1]:.3e} "
-            f"({d101[0] / d101[1]:.2f}x); m=16 (B=8, half with a dominant eigenvalue) "
-            f"{d16[0]:.3e} / {d16[1]:.3e} ({d16[0] / d16[1]:.2f}x)")
+        check(med5 < K4_ONE_PASS_TOL["median"] and max5 < K5_ONE_PASS_TOL and pad_ok,
+              "K5's carries disagree with the emulation")
 
         # K6 at the GLayer's side (P = 112: clusters of 7 CTAs, two an SM) and
-        # at a lifted side of 120 (P = 128: clusters of 8 CTAs, one an SM)
+        # at a lifted side of 120 (P = 128: clusters of 8 CTAs, one an SM),
+        # in both tiers: split-bf16 (the default) against the rounded split
+        # emulation, 3xTF32 against the fp32 plain version
         M120, c120, Y120 = cheb_inputs(np.random.default_rng(6), B_K6_128, self.dev, m=120)
         cases = [(M, c, Y, carries), (M120, c120, Y120, kc.cheb_fwd_planes(M120, c120, D)[2])]
         errs = []
         for Mk, ck, Yk, ck_carries in cases:
             mk, P = Mk.shape[-1], ck_carries[0].shape[-1]
-            ABr, ABi, cbar = kc.cheb_bwd_planes(Mk, ck, ck_carries, Yk, D)
-            Abar = torch.complex(ABr[:, :mk, :mk], ABi[:, :mk, :mk])
-            Ap, cp = kc.cheb_bwd_plain(Mk, ck, [x[:, :mk, :mk] for x in ck_carries], Yk, D)
-            Mb, Mbp = kc.normalization_backward(Mk, Abar), kc.normalization_backward(Mk, Ap)
-            torch.cuda.synchronize()
-            eM = float(rel_err(Mb[:-1], Mbp[:-1]).max())
-            ec = float(rel_err(cbar, cp).max())
-            finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
-                torch.all(torch.isfinite(cbar)))
-            pad_ok = all(bool(torch.all(x[:, mk:, :] == 0)) and bool(torch.all(x[:, :, mk:] == 0))
-                         for x in (ABr, ABi))
-            errs += [float((Abar - Ap).abs().max()), float((cbar - cp).abs().max())]
-            log(f"[14 K6 vs plain] B={Mk.shape[0]} m={mk} (P={P}), 3xTF32 tensor-core products: "
-                f"Mbar max per-matrix rel err {eM:.3e} (tol {K6_PLAIN_TOL['Mbar']:g}), cbar "
-                f"{ec:.3e} (tol {K6_PLAIN_TOL['cbar']:g}); finite: {finite}; Abar padding "
-                f"exactly 0: {pad_ok}")
-            check(finite and pad_ok and eM < K6_PLAIN_TOL["Mbar"] and ec < K6_PLAIN_TOL["cbar"],
-                  f"K6 at P={P} disagrees with its plain version")
+            crop = [x[:, :mk, :mk] for x in ck_carries]
+            for three_pass, tol, what in ((True, K6_SPLIT_TOL, "rounded split emulation"),
+                                          (False, K6_PLAIN_TOL, "fp32 plain version")):
+                ABr, ABi, cbar = kc.cheb_bwd_planes(Mk, ck, ck_carries, Yk, D, three_pass)
+                Abar = torch.complex(ABr[:, :mk, :mk], ABi[:, :mk, :mk])
+                Ap, cp = kc.cheb_bwd_plain(Mk, ck, crop, Yk, D, three_pass, three_pass)
+                Mb, Mbp = kc.normalization_backward(Mk, Abar), kc.normalization_backward(Mk, Ap)
+                torch.cuda.synchronize()
+                eMs = rel_err(Mb[:-1], Mbp[:-1])
+                eM, eMmed = float(eMs.max()), float(eMs.median())
+                ec = float(rel_err(cbar, cp).max())
+                med_tol = tol.get("Mbar_median", float("inf"))
+                finite = bool(torch.all(torch.isfinite(torch.view_as_real(Mb)))) and bool(
+                    torch.all(torch.isfinite(cbar)))
+                pad_ok = all(bool(torch.all(x[:, mk:, :] == 0))
+                             and bool(torch.all(x[:, :, mk:] == 0)) for x in (ABr, ABi))
+                if three_pass:
+                    errs += [float((Abar - Ap).abs().max()), float((cbar - cp).abs().max())]
+                log(f"[14 K6 vs plain] B={Mk.shape[0]} m={mk} (P={P}), three_pass={three_pass} "
+                    f"vs the {what}: Mbar per-matrix rel err median {eMmed:.3e} (tol "
+                    f"{med_tol:g}), max {eM:.3e} (tol {tol['Mbar']:g}), cbar max {ec:.3e} (tol "
+                    f"{tol['cbar']:g}); finite: {finite}; Abar padding exactly 0: {pad_ok}")
+                check(finite and pad_ok and eM < tol["Mbar"] and ec < tol["cbar"]
+                      and eMmed < med_tol,
+                      f"K6 (three_pass={three_pass}) at P={P} disagrees with the {what}")
         self.kernels["K6"] = {"max_abs_err": max(errs)}
         del cases, M120, c120, Y120
 
-        # through autograd: cheb_filter_matrices (K5 + K6) vs the plain forward
+        # through autograd: cheb_filter_matrices (K5 + K6 at the card's tiers)
+        # vs torch autograd through the fp32 plain forward
         grads = []
         W = Y[:-1]
         for fn in (kc.cheb_filter_matrices, kc.cheb_filter_matrices_plain):
@@ -1698,21 +1804,37 @@ class Smoke:
             grads.append((herm(Mg.grad), cg.grad))
         eM = float(rel_err(grads[0][0], grads[1][0]).max())
         ec = float(rel_err(grads[0][1], grads[1][1]).max())
-        log(f"[14 K6 vs autograd] Hermitian part of Mbar vs torch autograd through the plain "
-            f"forward: max per-matrix rel err {eM:.3e}, cbar {ec:.3e} (tol {K6_AUTOGRAD_TOL:g})")
-        check(eM < K6_AUTOGRAD_TOL and ec < K6_AUTOGRAD_TOL, "K6 disagrees with plain autograd")
+        log(f"[14 K6 vs autograd] Hermitian part of Mbar vs torch autograd through the fp32 "
+            f"plain forward: max per-matrix rel err {eM:.3e} (tol {K6_AUTOGRAD_TOL['Mbar']:g}), "
+            f"cbar {ec:.3e} (tol {K6_AUTOGRAD_TOL['cbar']:g})")
+        check(eM < K6_AUTOGRAD_TOL["Mbar"] and ec < K6_AUTOGRAD_TOL["cbar"],
+              "K6 disagrees with plain autograd")
 
     # 15 ------------------------------------------------------------------
     def golden_train_steps(self):
         t0 = time.time()
-        losses, gold, err = golden_steps(self.dev)
+        state = {}
+        losses, gold, err = golden_steps(self.dev, state_out=state)
+        secs = time.time() - t0
         e_loss = float(np.max(np.abs(losses - gold) / np.abs(gold)))
         log(f"[15 golden steps] net-3, {GOLDEN_STEPS} recipe steps of {GOLDEN_BATCH} scenes "
             f"from the JAX seed-0 init: losses {np.round(losses, 7).tolist()} vs JAX "
             f"{np.round(gold, 7).tolist()}, max rel err {e_loss:.3e} (tol {GOLDEN_LOSS_TOL:g}); "
-            f"parameter change error {err:.3e} (tol {GOLDEN_PARAM_TOL:g}) [{time.time() - t0:.1f} s]")
+            f"parameter change error {err:.3e} (tol {GOLDEN_PARAM_TOL:g}) [{secs:.1f} s]")
         check(np.all(np.isfinite(losses)), "golden steps: non-finite loss")
         check(e_loss < GOLDEN_LOSS_TOL and err < GOLDEN_PARAM_TOL, "golden steps vs JAX")
+        t0 = time.time()
+        emul = {}
+        with card_tier_on_cpu():
+            le, _, _ = golden_steps(torch.device("cpu"), state_out=emul)
+        e_emul = float(np.max(np.abs(losses - le) / np.abs(le)))
+        d_emul = state_distance(state, emul)
+        log(f"[15 golden steps] the same steps on the CPU at the card's tiers (emulation): "
+            f"losses {np.round(le, 7).tolist()}, max rel diff {e_emul:.3e} (tol "
+            f"{GOLDEN_EMUL_LOSS_TOL:g}); parameter distance {d_emul:.3e} (tol "
+            f"{GOLDEN_EMUL_PARAM_TOL:g}) [{time.time() - t0:.1f} s]")
+        check(e_emul < GOLDEN_EMUL_LOSS_TOL and d_emul < GOLDEN_EMUL_PARAM_TOL,
+              "golden steps vs their emulation")
 
     # 16 ------------------------------------------------------------------
     def training_run(self):
@@ -1847,32 +1969,30 @@ class Smoke:
             cropped = [x[:, :101, :101].contiguous() for x in carries]
             calls5 = k5_call_ms(kc, M, c)
             k5 = float(np.median(calls5))
-            k5p = cuda_ms(lambda: kc.cheb_filter_matrices_plain_with_residuals(M, c, D), reps=3)
+            k5p = cuda_ms(lambda: kc.cheb_filter_matrices_plain_with_residuals(M, c, D, True),
+                          reps=3)
             calls = k6_call_ms(kc, M, c, Y, carries)
             k6 = float(np.median(calls))
-            k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D), reps=3)
-            b5, by5, b5s = cheb_bounds(B, carries=True)
-            # K6's products run on the tensor cores in 3xTF32: three TF32
-            # products per useful one; the fp32 SIMT bound is kept beside it
-            b6, by6 = bound(0.0, cheb_bwd_bytes(B))
-            b6 = max(b6, 3 * cheb_bwd_flops(B) / PEAK_TF32 * 1e3)
-            by6 = "operations" if b6 > cheb_bwd_bytes(B) / PEAK_BYTES * 1e3 else "bytes"
-            b6s, _ = bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
+            k6p = cuda_ms(lambda: kc.cheb_bwd_plain(M, c, cropped, Y, D, True, True), reps=3)
+            b5, by5, b5x = cheb_bounds(B, carries=True)
+            # K6's split-bf16 products: three bf16 passes per useful product;
+            # the 3xTF32 tier's bound (three TF32 passes) beside it
+            b6, by6 = bound(0.0, cheb_bwd_bytes(B), 3 * cheb_bwd_flops(B))
+            b6x, _ = tf32x3_bound(cheb_bwd_flops(B), cheb_bwd_bytes(B))
             log(f"[17 time K5] B={B} m=101 degree {D}: kernel {k5:.3f} ms, the median of "
                 f"{CHEB_REPS} calls {min(calls5):.3f}-{max(calls5):.3f}, plain {k5p:.2f} ms; "
-                f"3xTF32 tensor-core bound {b5:.3f} ms ({by5}; {b5 / k5:.1%} of it), fp32 SIMT "
-                f"bound {b5s:.2f} ms ({b5s / k5:.1%} of it) {tag}")
+                f"one-pass bf16 bound {b5:.3f} ms ({by5}; {b5 / k5:.1%} of it), 3xTF32 bound "
+                f"{b5x:.3f} ms {tag}")
             log(f"[17 time K6] B={B}: kernel {k6:.3f} ms, the median of {CHEB_REPS} calls "
                 f"{min(calls):.3f}-{max(calls):.3f} ({cheb_bwd_flops(B) / k6 / 1e9:.2f} "
-                f"TFLOP/s useful), plain {k6p:.2f} ms; 3xTF32 tensor-core bound {b6:.3f} ms "
-                f"({by6}; {b6 / k6:.1%} of it), fp32 SIMT bound {b6s:.2f} ms ({b6s / k6:.1%} "
-                f"of it) {tag}")
+                f"TFLOP/s useful), plain {k6p:.2f} ms; split-bf16 bound {b6:.3f} ms ({by6}; "
+                f"{b6 / k6:.1%} of it), 3xTF32 bound {b6x:.3f} ms {tag}")
             if B == 256:
                 self.kernels["K5"].update(ms=k5, plain_ms=k5p, bound_ms=b5, bound_by=by5,
                                           library_ms=None, body=CHEB_FWD_BODY,
-                                          fp32_bound_ms=b5s)
+                                          tf32x3_bound_ms=b5x)
                 self.kernels["K6"].update(ms=k6, plain_ms=k6p, bound_ms=b6, bound_by=by6,
-                                          library_ms=None)
+                                          library_ms=None, tf32x3_bound_ms=b6x)
             del M, c, Y, carries, cropped
 
         run = json.loads((NET3 / "config.json").read_text())
@@ -2228,11 +2348,16 @@ class Smoke:
         gerr = [float(np.linalg.norm(r["grad"] - gref) / np.linalg.norm(gref)) for r in ranks]
         gctl = float(np.linalg.norm(first_gradient(None, reordered, self.dev) - gref)
                      / np.linalg.norm(gref))
+        half = {k: v[:n // 2] for k, v in train.items()}
+        ghalf = float(np.linalg.norm(first_gradient(None, half, self.dev) - gref)
+                      / np.linalg.norm(gref))
         log(f"[26b DDP first step] net-10 from its seed-0 init, global batch {n}: each rank's "
             f"clipped gradient (averaged by DDP) vs one process's, ||diff|| / ||g|| "
             f"{' '.join(f'{e:.3e}' for e in gerr)} (<= {PAR_GRAD_RTOL}); one process on the "
-            f"batch reordered {gctl:.3e}")
+            f"batch reordered {gctl:.3e}; on its first half alone (no all-reduce) {ghalf:.3e} "
+            f"(must be > {PAR_GRAD_RTOL})")
         check(max(gerr) <= PAR_GRAD_RTOL, "DDP's first step is not the single-process step")
+        check(ghalf > PAR_GRAD_RTOL, "the first-gradient gate cannot see a missing all-reduce")
 
         single = net10_run(None, train, val, str(Path(work.name) / "single"), self.dev)
         control = net10_run(None, reordered, {k: v[perm] for k, v in val.items()},
@@ -2250,11 +2375,12 @@ class Smoke:
         dv0 = float(dev_from_single(r0, "val_loss")[0])
         log(f"[26b DDP net-10] {PAR_STEPS} steps of global batch {n} ({n // 2} a rank): step 1 "
             f"(the same initial state) train loss rel diff {dl0:.3e}, validation after it "
-            f"{dv0:.3e} (each <= {PAR_LOSS_RTOL}); later steps are reported, not gated: a "
-            f"reordering of the same batch in one process moves them as far (above); final "
+            f"{dv0:.3e} (<= {PAR_LOSS_RTOL}, {PAR_VAL1_RTOL}); later steps are reported, not "
+            f"gated: a reordering of the same batch in one process moves them as far (above); "
+            f"final "
             f"validation {r0['val_loss'][-1]:.6f} vs {single['val_loss'][-1]:.6f}, matched test "
             f"F1 {r0['test']['matched_f1']:.4f} vs {single['test']['matched_f1']:.4f}")
-        check(dl0 <= PAR_LOSS_RTOL and dv0 <= PAR_LOSS_RTOL,
+        check(dl0 <= PAR_LOSS_RTOL and dv0 <= PAR_VAL1_RTOL,
               "DDP's first step left the single-process run")
         check(ranks[0]["train_loss"] == ranks[1]["train_loss"],
               "the ranks report different global losses")
@@ -2381,21 +2507,33 @@ class Smoke:
         for counter in (kc.launches, kc.fwd_launches, kc.bwd_launches):
             counter.reset()
         t0 = time.time()
-        losses, gold, err, _ = phi_golden_steps(self.dev)
+        state = {}
+        losses, gold, err, _ = phi_golden_steps(self.dev, state_out=state)
         e_loss = np.abs(losses - gold) / np.abs(gold)
         golden = cheb_counts()
         log(f"[27b golden steps] net-10 phi net, {GOLDEN_STEPS} recipe steps of {GOLDEN_BATCH} "
             f"scenes from the JAX seed-0 init on JAX's labels: losses "
             f"{np.round(losses, 7).tolist()} vs JAX {np.round(gold, 7).tolist()}, rel err per "
-            f"step {' '.join(f'{e:.3e}' for e in e_loss)} (tol step 1 {GOLDEN_LOSS_TOL:g}, "
-            f"later {PHI_GOLDEN_LOSS_TOL:g}); parameter change error {err:.3e} (tol "
-            f"{PHI_GOLDEN_PARAM_TOL:g}); K5 {golden['K5']}, K6 {golden['K6']} (each "
-            f"{glayers} x {GOLDEN_STEPS}) [{time.time() - t0:.1f} s]")
+            f"step {' '.join(f'{e:.3e}' for e in e_loss)} (tol step 1 "
+            f"{PHI_GOLDEN_STEP1_TOL:g}); parameter change error {err:.3e}; K5 {golden['K5']}, "
+            f"K6 {golden['K6']} (each {glayers} x {GOLDEN_STEPS}) [{time.time() - t0:.1f} s]")
         check(np.all(np.isfinite(losses)), "phi golden steps: non-finite loss")
         check(golden["K5"] == golden["K6"] == glayers * GOLDEN_STEPS,
               "the phi golden steps did not launch K5/K6 once per GLayer and step")
-        check(e_loss[0] < GOLDEN_LOSS_TOL and float(e_loss[1:].max()) < PHI_GOLDEN_LOSS_TOL
-              and err < PHI_GOLDEN_PARAM_TOL, "phi golden steps vs JAX")
+        check(e_loss[0] < PHI_GOLDEN_STEP1_TOL, "phi golden step 1 vs JAX")
+        t0 = time.time()
+        emul = {}
+        with card_tier_on_cpu():
+            le, _, _, _ = phi_golden_steps(torch.device("cpu"), state_out=emul)
+        e_emul = np.abs(losses - le) / np.abs(le)
+        d_emul = state_distance(state, emul)
+        log(f"[27b golden steps] the same steps on the CPU at the card's tiers (emulation): "
+            f"losses {np.round(le, 7).tolist()}, rel diff per step "
+            f"{' '.join(f'{e:.3e}' for e in e_emul)} (tol "
+            f"{' '.join(f'{t:g}' for t in PHI_EMUL_LOSS_TOL)}); parameter distance "
+            f"{d_emul:.3e} (tol {PHI_EMUL_PARAM_TOL:g}) [{time.time() - t0:.1f} s]")
+        check(all(e < t for e, t in zip(e_emul, PHI_EMUL_LOSS_TOL))
+              and d_emul < PHI_EMUL_PARAM_TOL, "phi golden steps vs their emulation")
 
         # (c) train_cli --phi
         before = cheb_counts()

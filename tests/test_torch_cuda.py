@@ -65,6 +65,35 @@ def _rel(a, b, reduce=torch.max):
     return float(reduce(torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)))
 
 
+_MM = kp.mm
+
+
+def mm_f64(a, b, split, one_pass_round=None):
+    """``polar.mm`` with its one-pass and split products summed in float64
+    (the same rounded operands); the fp32 product as it is."""
+    if one_pass_round is None and not split:
+        return _MM(a, b, split)
+    if not split:
+        return (one_pass_round(a).double() @ one_pass_round(b).double()).float()
+    ah, bh = kp.bf16_rn(a), kp.bf16_rn(b)
+    al, bl = a - ah, b - bh
+    if one_pass_round is not None:
+        al, bl = one_pass_round(al), one_pass_round(bl)
+    ah, bh, al, bl = (x.double() for x in (ah, bh, al, bl))
+    return (ah @ bh + ah @ bl + al @ bh).float()
+
+
+def sums_in_float64(fn, *args, **kw):
+    """``fn`` with ``polar.mm`` replaced by ``mm_f64``: an emulation whose
+    sums run in another order and width, which shows how far a correct
+    kernel may sit from it."""
+    kp.mm = mm_f64
+    try:
+        return fn(*args, **kw)
+    finally:
+        kp.mm = _MM
+
+
 K2_ONE_PASS = {"median": 1e-2, "max": 2e-2}
 K2_ONE_PASS_EDGES = {"median": 3e-2, "max": 4e-2}
 
@@ -303,8 +332,20 @@ def test_polar_bf16_store_matches_plain(cuda, hi_steps):
     assert _rel(Pk, psd_project_eigh(M)) < 8e-3
 
 
+# K4/K5 vs their one-pass emulation (chip_smoke.py's K4_ONE_PASS_TOL,
+# measured by tests/one_pass_spread.py: median 7.7e-4 / max 2.1e-3 at
+# m = 101, the emulation's own float32-vs-float64 spread 7.4e-4 / 2.2e-3,
+# the fp32 tier 3.8e-3 / 7.9e-3 away); the carries' max K5_ONE_PASS
+K4_ONE_PASS = {"median": 1.5e-3, "max": 6e-3}
+K5_ONE_PASS = 1e-2
+
+
 @pytest.mark.cuda
-def test_cheb_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("final_hi", [False, True])
+def test_cheb_kernel_matches_plain(cuda, final_hi):
+    """K4 vs its emulation (the plain version with ``one_pass``): the
+    Clenshaw steps' products one-pass bf16, the closing one too unless
+    ``final_hi``."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(64, 101, 101)) + 1j * rng.normal(size=(64, 101, 101))
     M = np.ascontiguousarray((X + X.conj().transpose(0, 2, 1)) / 2, np.complex64)
@@ -312,18 +353,19 @@ def test_cheb_kernel_matches_plain(cuda):
     M = torch.from_numpy(M).to(cuda)
     c = torch.from_numpy((rng.normal(size=(64, 48)) * 0.3).astype(np.float32)).to(cuda)
     before = kc.launches.count
-    G = kc.cheb_filter_matrices(M, c, 48)
+    G = kc.cheb_filter_matrices(M, c, 48, final_hi)
     assert kc.launches.count == before + 1
-    Gp = kc.cheb_filter_matrices_plain(M, c, 48)
-    assert _rel(G[:-1], Gp[:-1]) < 5e-5
-    assert torch.equal(G[-1], Gp[-1])  # A = 0: no product carries rounding
-    Gr, Gi = kc.cheb_filter_planes(M, c, 48)
+    Ge = kc.cheb_filter_matrices_plain(M, c, 48, one_pass=True, final_hi=final_hi)
+    assert _rel(G[:-1], Ge[:-1], torch.median) < K4_ONE_PASS["median"]
+    assert _rel(G[:-1], Ge[:-1]) < K4_ONE_PASS["max"]
+    assert torch.equal(G[-1], Ge[-1])  # A = 0: no product carries rounding
+    Gr, Gi = kc.cheb_filter_planes(M, c, 48, final_hi)
     for X in (Gr, Gi):
         assert bool(torch.all(X[:, 101:, :] == 0)) and bool(torch.all(X[:, :, 101:] == 0))
     # a call that needs a gradient runs the training forward K5 instead,
     # whose output is K4's bit for bit
     before, before5 = kc.launches.count, kc.fwd_launches.count
-    G5 = kc.cheb_filter_matrices(M.clone().requires_grad_(True), c, 48)
+    G5 = kc.cheb_filter_matrices(M.clone().requires_grad_(True), c, 48, final_hi)
     assert (kc.launches.count, kc.fwd_launches.count) == (before, before5 + 1)
     assert torch.equal(G5.detach(), G)
 
@@ -347,30 +389,37 @@ def _cheb_inputs(cuda, B=64, m=101, degree=48, seed=0):
 
 @pytest.mark.cuda
 def test_cheb_fwd_kernel_is_k4_with_carries(cuda):
-    """K5: K4's output bit for bit, and the final carries of the plain
-    forward (fp32 sums in another order through 47 steps)."""
+    """K5: K4's output bit for bit, and the final carries of the one-pass
+    emulation (K4_ONE_PASS's median, K5_ONE_PASS's max)."""
     M, c, _ = _cheb_inputs(cuda)
     G4r, G4i = kc.cheb_filter_planes(M, c, 48)
     before = kc.fwd_launches.count
     Gr, Gi, carries = kc.cheb_fwd_planes(M, c, 48)
     assert kc.fwd_launches.count == before + 1
     assert torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
-    _, plain = kc.cheb_filter_matrices_plain_with_residuals(M, c, 48)
-    for k, p in zip(carries, plain):
+    _, emul = kc.cheb_filter_matrices_plain_with_residuals(M, c, 48, one_pass=True)
+    for k, e in zip(carries, emul):
         assert bool(torch.all(k[:, 101:, :] == 0)) and bool(torch.all(k[:, :, 101:] == 0))
-        assert _rel(k[:, :101, :101], p) < 5e-5
+        assert _rel(k[:, :101, :101], e, torch.median) < K4_ONE_PASS["median"]
+        assert _rel(k[:, :101, :101], e) < K5_ONE_PASS
 
 
-def _fp32_faithful(k, p32, p64):
-    """Matrices whose fp32 plain version is exactly zero (degree 1's carries,
-    degree 2's b_2) must be exactly zero; the rest no further from the fp64
-    evaluation than 8x the fp32 plain version is (3xTF32 rounds a product at
-    ~2^-21, IEEE fp32 at 2^-24), plus 1e-6."""
-    zero = torch.linalg.norm(p32.reshape(p32.shape[0], -1), dim=-1) == 0
-    assert torch.equal(k[zero], p32[zero])
+def _near_emulation(k, e32, e64):
+    """Matrices whose emulation is exactly zero (degree 1's carries, degree
+    2's b_2) must be exactly zero; the rest: the median matrix no further
+    from the float32 emulation than 3x the emulation's own float32-vs-
+    float64 spread (or 1e-5), and every matrix within 5e-2.  On small sides
+    with a dominant eigenvalue the recurrence amplifies one flipped bf16
+    rounding (tests/one_pass_spread.py: 1.9e-2 at m = 10 where the spread's
+    max is 1.2e-6, 2.3e-2 at m = 16 where it is 3.0e-2); a misplaced band
+    or step moves matrices by O(1)."""
+    zero = torch.linalg.norm(e32.reshape(e32.shape[0], -1), dim=-1) == 0
+    assert torch.equal(k[zero], e32[zero])
     if bool((~zero).any()):
-        k, p32, p64 = k[~zero].to(p64.dtype), p32[~zero].to(p64.dtype), p64[~zero]
-        assert _rel(k, p64) <= 8 * _rel(p32, p64) + 1e-6
+        k, e32, e64 = k[~zero], e32[~zero], e64[~zero]
+        spread = _rel(e32, e64, torch.median)
+        assert _rel(k, e32, torch.median) <= max(1e-5, 3 * spread)
+        assert _rel(k, e32) < 5e-2
 
 
 @pytest.mark.cuda
@@ -378,65 +427,76 @@ def _fp32_faithful(k, p32, p64):
 @pytest.mark.parametrize("degree", [1, 2, 3, 48])
 def test_cheb_fwd_kernel_edges(cuda, degree, m):
     """K4 and K5 at the loop's bounds (degree 1: no step, the product with
-    b_1 = 0 only; 2: no step after the first; 3: one), at sides that leave
-    whole bands of the cluster as padding (m = 10, 16), at the GLayer's
-    (m = 101) and the last of P = 112 (m = 111), and at lifted sides of the
-    P = 128 instantiation (m = 120, 126: clusters of 8 CTAs), with a zero
-    matrix: G and the carries of the zero matrix exactly the plain
-    version's, every padded row and column exactly 0, K5's G bitwise K4's,
-    and the rest fp32-faithful against the fp64 evaluation (_fp32_faithful).
-    A fixed limit against the fp32 plain version would not do here: on
-    small matrices with a dominant eigenvalue the carries are
-    ill-conditioned, and the plain version's own carries sit far from fp64
-    (chip_smoke.py phase 14 prints the kernel's and the plain version's
-    distances at m = 16).  At the GLayer's side the same kernels are held
-    to the plain version within 5e-5
-    (test_cheb_kernel_matches_plain, test_cheb_fwd_kernel_is_k4_with_carries,
-    chip_smoke.py phases 10 and 14)."""
+    b_1 = 0 only; 2: no step after the first; 3: one, the first real
+    product), at sides that leave whole bands of the cluster as padding
+    (m = 10, 16), at the GLayer's (m = 101) and the last of P = 112
+    (m = 111), and at lifted sides of the P = 128 instantiation (m = 120,
+    126: clusters of 8 CTAs), with a zero matrix: G and the carries of the
+    zero matrix exactly the emulation's, every padded row and column
+    exactly 0, K5's G bitwise K4's, and the rest near the one-pass
+    emulation (_near_emulation).  At the GLayer's side the same kernels are
+    held to K4_ONE_PASS (test_cheb_kernel_matches_plain,
+    test_cheb_fwd_kernel_is_k4_with_carries, chip_smoke.py phases 10 and
+    14)."""
     M, c, _ = _cheb_inputs(cuda, B=8, m=m, degree=degree, seed=100 + degree)
     M[-1] = 0
     G4r, G4i = kc.cheb_filter_planes(M, c, degree)
     Gr, Gi, carries = kc.cheb_fwd_planes(M, c, degree)
     assert torch.equal(Gr, G4r) and torch.equal(Gi, G4i)
-    Gp, plain = kc.cheb_filter_matrices_plain_with_residuals(M, c, degree)
-    G64, plain64 = kc.cheb_filter_matrices_plain_with_residuals(
-        M.to(torch.complex128), c.double(), degree)
+    Ge, emul = kc.cheb_filter_matrices_plain_with_residuals(M, c, degree, one_pass=True)
+    G64, emul64 = sums_in_float64(kc.cheb_filter_matrices_plain_with_residuals, M, c, degree,
+                                  one_pass=True)
     G = torch.complex(Gr[:, :m, :m], Gi[:, :m, :m])
     for x in (Gr, Gi, *carries):
         assert bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
         assert bool(torch.all(torch.isfinite(x)))
-    assert torch.equal(G[-1], Gp[-1])  # A = 0: no product carries rounding
-    _fp32_faithful(G[:-1], Gp[:-1], G64[:-1])
-    for k, p, p64 in zip(carries, plain, plain64):
-        assert torch.equal(k[-1, :m, :m], p[-1])
-        _fp32_faithful(k[:-1, :m, :m], p[:-1], p64[:-1])
+    assert torch.equal(G[-1], Ge[-1])  # A = 0: no product carries rounding
+    _near_emulation(G[:-1], Ge[:-1], G64[:-1])
+    for k, e, e64 in zip(carries, emul, emul64):
+        assert torch.equal(k[-1, :m, :m], e[-1])
+        _near_emulation(k[:-1, :m, :m], e[:-1], e64[:-1])
+
+
+# K6 vs its plain version at its tier (chip_smoke.py's K6_SPLIT_TOL and
+# K6_PLAIN_TOL, measured by tests/one_pass_spread.py): the split tier vs
+# the rounded split emulation (Mbar median 2.6e-6, max 7.5e-6; the split
+# with fp32 residuals sits at median 8.6e-6), 3xTF32 vs the fp32 plain
+# version (max 1.4e-6)
+K6_TOL = {True: {"median": 5e-6, "max": 2e-5}, False: {"median": 2e-5, "max": 2e-5}}
 
 
 @pytest.mark.cuda
-def test_cheb_bwd_kernel_matches_plain(cuda):
-    """K6 vs ``cheb_bwd_plain`` on the same inputs (K5's carries)."""
+@pytest.mark.parametrize("three_pass", [True, False])
+def test_cheb_bwd_kernel_matches_plain(cuda, three_pass):
+    """K6 vs ``cheb_bwd_plain`` at its tier on the same inputs (K5's
+    carries); the dispatch's default on the card is the split tier."""
     M, c, Y = _cheb_inputs(cuda)
     _, _, carries = kc.cheb_fwd_planes(M, c, 48)
     before = kc.bwd_launches.count
-    Abar, cbar = kc.cheb_bwd(M, c, carries, Y, 48)
+    kw = {} if three_pass else {"three_pass": False}
+    Abar, cbar = kc.cheb_bwd(M, c, carries, Y, 48, **kw)
     assert kc.bwd_launches.count == before + 1
-    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :101, :101] for x in carries], Y, 48)
-    assert _rel(Abar, Ap) < 1e-3
-    assert _rel(cbar, cp) < 1e-3
+    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :101, :101] for x in carries], Y, 48, three_pass,
+                               three_pass)
+    Mb, Mbp = kc.normalization_backward(M, Abar), kc.normalization_backward(M, Ap)
+    tol = K6_TOL[three_pass]
+    assert _rel(Mb, Mbp, torch.median) < tol["median"] and _rel(Mb, Mbp) < tol["max"]
+    assert _rel(cbar, cp) < 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [24, 101, 120])
 @pytest.mark.parametrize("degree", [2, 3, 48])
 def test_cheb_bwd_kernel_edges(cuda, degree, m):
-    """K6 at the loop's bounds (degree 2: no step but the first; 3: no
-    rebuild), at a side that leaves whole bands of the cluster as padding
-    (m = 24), at the GLayer's (m = 101, P = 112) and at a lifted side of the
-    P = 128 instantiation (m = 120: clusters of 8 CTAs), with a zero matrix:
-    vs its plain version, finite, and every padded row and column of Abar
-    exactly 0.  The 1e-3 limit catches a wrong band or step, not a lost
-    digit: K6's precision (3xTF32, fp32-faithful) is held to K6_PLAIN_TOL in
-    chip_smoke.py phase 14, at both plane sides."""
+    """K6 at the loop's bounds (degree 2: no step but the first; 3: one
+    rebuild, of b_degree), at a side that leaves whole bands of the cluster
+    as padding (m = 24), at the GLayer's (m = 101, P = 112) and at a lifted
+    side of the P = 128 instantiation (m = 120: clusters of 8 CTAs), with a
+    zero matrix: vs its rounded split emulation, finite, and every padded
+    row and column of Abar exactly 0.  The 1e-3 limit catches a wrong band
+    or step, not a lost digit: K6's precision is held in
+    test_cheb_bwd_kernel_matches_plain and chip_smoke.py phase 14, at both
+    plane sides."""
     M, c, Y = _cheb_inputs(cuda, B=8, m=m, degree=degree, seed=degree)
     M[-1] = 0
     _, _, carries = kc.cheb_fwd_planes(M, c, degree)
@@ -444,16 +504,19 @@ def test_cheb_bwd_kernel_edges(cuda, degree, m):
     for x in (ABr, ABi):
         assert bool(torch.all(x[:, m:, :] == 0)) and bool(torch.all(x[:, :, m:] == 0))
         assert bool(torch.all(torch.isfinite(x)))
-    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :m, :m] for x in carries], Y, degree)
+    Ap, cp = kc.cheb_bwd_plain(M, c, [x[:, :m, :m] for x in carries], Y, degree, True, True)
     assert _rel(torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]), Ap) < 1e-3
     assert _rel(cbar, cp) < 1e-3
 
 
 @pytest.mark.cuda
 def test_cheb_filter_fn_backward_on_cuda(cuda):
-    """Gradients through ``cheb_filter_matrices`` on the card (K5 + K6) vs
-    torch autograd through the plain forward, Hermitian parts (the kernel
-    symmetrizes the cotangent, plain autograd does not)."""
+    """Gradients through ``cheb_filter_matrices`` on the card (K5 + K6 at
+    the card's tiers) vs torch autograd through the fp32 plain forward,
+    Hermitian parts (the kernel symmetrizes the cotangent, plain autograd
+    does not): chip_smoke.py's K6_AUTOGRAD_TOL, ~2.5x the card tiers'
+    distance on the CPU's emulation (tests/golden/cheb_tier_gap.py: Mbar
+    8.5e-3, cbar 2.3e-5)."""
     M, c, W = _cheb_inputs(cuda, B=16)
     grads = []
     for fn in (kc.cheb_filter_matrices, kc.cheb_filter_matrices_plain):
@@ -461,8 +524,8 @@ def test_cheb_filter_fn_backward_on_cuda(cuda):
         (fn(Mg, cg, 48) * W.conj()).real.sum().backward()
         herm = 0.5 * (Mg.grad + Mg.grad.conj().transpose(-1, -2))
         grads.append((herm, cg.grad))
-    assert _rel(grads[0][0], grads[1][0]) < 1e-3
-    assert _rel(grads[0][1], grads[1][1]) < 1e-3
+    assert _rel(grads[0][0], grads[1][0]) < 2e-2
+    assert _rel(grads[0][1], grads[1][1]) < 6e-5
 
 
 # ---- data parallelism on the card ----------------------------------------------

@@ -97,11 +97,22 @@ def test_ref_dense_and_leading_batch_dims(phi_update):
     assert _rel(pt.numpy().reshape(4, 100), pj) < 2e-5
 
 
-def test_fused_modes_reject_the_dense_phi_update():
-    y, b, s = _t(*make_anchor_batch(2, mode="redemod", seed=1))
-    with pytest.raises(NotImplementedError, match="phi_update"):
-        admm_solve_fixed(y, b, s, 2, 1.0,
-                         ADMMOptions(g_update="fused_fast", phi_update="ref_dense"))
+@pytest.mark.parametrize("g_update", ["fused_fast", "fused_exact"])
+def test_fused_modes_fall_back_for_the_dense_phi_update(g_update):
+    """The fused solve implements phi_update="diag": with "ref_dense" the
+    port warns and runs the loop with polar_fast (polar for fused_exact)
+    and the dense phi-update, as the JAX package does off the TPU.
+    Tolerance: the loop's, test_fixed_modes_match_jax_scan_path's 1e-4 /
+    5e-4 at 20 iterations (fp32 with the sums in another order)."""
+    y, b, s = make_anchor_batch(2, mode="redemod", seed=1)
+    o = JOptions(g_update=g_update, phi_update="ref_dense")
+    with pytest.warns(UserWarning, match="falling back"):
+        pj = np.asarray(jax_fixed(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), 20, 1.0, o))
+    fallback = "polar" if g_update == "fused_exact" else "polar_fast"
+    with pytest.warns(UserWarning, match=f"g_update={fallback!r}: phi_update='ref_dense'"):
+        pt = admm_solve_fixed(*_t(y, b, s), 20, 1.0, options_from_jax(o))
+    assert pt.shape == y.shape and bool(torch.all(torch.isfinite(torch.view_as_real(pt))))
+    assert _rel(pt.numpy(), pj) < (5e-4 if g_update == "fused_exact" else 1e-4)
 
 
 @pytest.mark.parametrize("g_update", ["fused_fast", "fused_exact"])
