@@ -29,6 +29,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from admmnet_tpu_torch.utils import profiling
+
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "fastloader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
@@ -174,14 +176,12 @@ class PrefetchLoader:
         def producer():
             for s in starts:
                 q.put(self._assemble(order[s:s + self.batch_size]))
-            q.put(None)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is None:
-                break
+        for _ in starts:
+            with profiling.span("loader.wait"):
+                item = q.get()
             yield item
         t.join()
 

@@ -66,12 +66,13 @@ from __future__ import annotations
 
 import torch
 
-from admmnet_tpu_torch.kernels.polar import LaunchCounter, bf16_rn, karatsuba, padded_side
+from admmnet_tpu_torch.kernels.polar import bf16_rn, karatsuba, padded_side
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
+from admmnet_tpu_torch.utils import profiling
 
-launches = LaunchCounter()  # K4: the inference forward
-fwd_launches = LaunchCounter()  # K5: the training forward
-bwd_launches = LaunchCounter()  # K6: the reversible backward
+launches = profiling.LaunchCounter("K4")  # the inference forward
+fwd_launches = profiling.LaunchCounter("K5")  # the training forward
+bwd_launches = profiling.LaunchCounter("K6")  # the reversible backward
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -351,9 +352,10 @@ class ChebFilterFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        M, coeffs, *carries = ctx.saved_tensors
-        Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree, ctx.three_pass)
-        return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None, None, None
+        with profiling.span("models.glayer_bwd"):
+            M, coeffs, *carries = ctx.saved_tensors
+            Abar, cbar = cheb_bwd(M, coeffs, carries, gout, ctx.degree, ctx.three_pass)
+            return normalization_backward(M, Abar), cbar.to(coeffs.dtype), None, None, None
 
 
 def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int,

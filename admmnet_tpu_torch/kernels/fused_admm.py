@@ -31,11 +31,12 @@ from admmnet_tpu_torch.kernels.fused_admm_fast import (
     solve_inputs,
     solve_plain,
 )
-from admmnet_tpu_torch.kernels.polar import LaunchCounter, padded_side
+from admmnet_tpu_torch.kernels.polar import padded_side
 from admmnet_tpu_torch.ops.projections import POLAR_QUINTIC_SCHEDULE, project_l1_ball
+from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 Z_PLANES = 2  # the kernel's per-instance scratch: Z's real and imaginary planes
-launches = LaunchCounter()
+launches = LaunchCounter("K7")
 
 
 def project_sum_inf_nested(t, A, outer_iters, inner_iters):

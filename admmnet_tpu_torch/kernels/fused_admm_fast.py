@@ -66,7 +66,6 @@ import numpy as np
 import torch
 
 from admmnet_tpu_torch.kernels.polar import (
-    LaunchCounter,
     abs_product,
     frobenius_inv,
     padded_side,
@@ -74,12 +73,13 @@ from admmnet_tpu_torch.kernels.polar import (
     tf32_rna,
 )
 from admmnet_tpu_torch.ops.projections import POLAR_BF16_POLISH, POLAR_BF16_SCHEDULE
+from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 BIG = 3e37  # "no bracket yet": the next clamp falls back to the global one
 NORM_ABLATED_INV = 1.0 / 64.0  # ablate="norm": the fixed Frobenius scaling
 
-launches = LaunchCounter()  # K2: layout="lean"
-lists_launches = LaunchCounter()  # K3: layout="lists"
+launches = LaunchCounter("K2")  # layout="lean"
+lists_launches = LaunchCounter("K3")  # layout="lists"
 
 
 def full_schedule(schedule, hi_steps: int, all_hi: bool):

@@ -47,21 +47,11 @@ from admmnet_tpu_torch.ops.projections import (
     POLAR_BF16_SCHEDULE,
     POLAR_QUINTIC_SCHEDULE,
 )
+from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 MAX_SIDE = 128
 
-
-class LaunchCounter:
-    """Plain count of kernel launches (one per launched batch)."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self):
-        self.count = 0
-
-
-launches = LaunchCounter()
+launches = LaunchCounter("K1")
 
 
 def padded_side(m: int) -> int:

@@ -30,6 +30,7 @@ import torch.nn as nn
 from admmnet_tpu_torch.ops.atoms import COMPLEX
 from admmnet_tpu_torch.ops.linalg import assemble_lifted, fro_norm, hermitianize
 from admmnet_tpu_torch.ops.projections import hermitian_eigh
+from admmnet_tpu_torch.utils import profiling
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -143,32 +144,33 @@ class GLayer(nn.Module):
         return softplus(w - thr) * s
 
     def forward(self, phi, h, Z):
-        lam = softplus(self._parameters["lambda"])
-        rho = softplus(self.rho)
-        lam_inv = 1.0 / (lam**2 + self.epsilon)
-        if self.ref_stop_gradients:
-            lam_inv = lam_inv.detach()
-        M = assemble_lifted(h, phi, lam_inv) - Z / (rho + self.epsilon)
+        with profiling.span("models.glayer"):
+            lam = softplus(self._parameters["lambda"])
+            rho = softplus(self.rho)
+            lam_inv = 1.0 / (lam**2 + self.epsilon)
+            if self.ref_stop_gradients:
+                lam_inv = lam_inv.detach()
+            M = assemble_lifted(h, phi, lam_inv) - Z / (rho + self.epsilon)
 
-        if self.mode == "chebyshev":
-            if self.cheb_impl == "pallas":
-                from admmnet_tpu_torch.kernels.cheb_filter import apply_spectral_filter_kernel
+            if self.mode == "chebyshev":
+                if self.cheb_impl == "pallas":
+                    from admmnet_tpu_torch.kernels.cheb_filter import apply_spectral_filter_kernel
 
-                G = apply_spectral_filter_kernel(hermitianize(M), self.spectral_filter,
-                                                 self.cheb_degree)
-            else:
-                from admmnet_tpu_torch.ops.chebyshev import apply_spectral_filter
+                    G = apply_spectral_filter_kernel(hermitianize(M), self.spectral_filter,
+                                                     self.cheb_degree)
+                else:
+                    from admmnet_tpu_torch.ops.chebyshev import apply_spectral_filter
 
-                G = apply_spectral_filter(hermitianize(M), self.spectral_filter,
-                                          self.cheb_degree, self.cheb_precision)
+                    G = apply_spectral_filter(hermitianize(M), self.spectral_filter,
+                                              self.cheb_degree, self.cheb_precision)
+                return hermitianize(G)
+
+            w, V = hermitian_eigh(M)
+            w = w.to(torch.float32)
+            V = V.to(COMPLEX).detach()
+            w_new = self.spectral_filter(w).to(COMPLEX)
+            G = (V * w_new[..., None, :]) @ torch.conj(V.transpose(-1, -2))
             return hermitianize(G)
-
-        w, V = hermitian_eigh(M)
-        w = w.to(torch.float32)
-        V = V.to(COMPLEX).detach()
-        w_new = self.spectral_filter(w).to(COMPLEX)
-        G = (V * w_new[..., None, :]) @ torch.conj(V.transpose(-1, -2))
-        return hermitianize(G)
 
 
 class ZLayer(nn.Module):

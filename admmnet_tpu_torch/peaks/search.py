@@ -33,6 +33,7 @@ from admmnet_tpu_torch.core.config import PeakSearchConfig
 from admmnet_tpu_torch.ops.atoms import delay_steering, doppler_steering
 from admmnet_tpu_torch.ops.linalg import complex_matmul
 from admmnet_tpu_torch.peaks.spectrum import spectrum_grid
+from admmnet_tpu_torch.utils import profiling
 
 
 class PeakResult(NamedTuple):
@@ -97,35 +98,39 @@ def find_peaks(phi: torch.Tensor, Nb: int, Nd: int,
     Returns PeakResult with K = cfg.max_peaks entries per instance, sorted
     by height descending; invalid (padding) entries have height -inf.
     """
-    batch_shape = phi.shape[:-1]
-    phi2 = phi.reshape(-1, phi.shape[-1])
-    B = phi2.shape[0]
-    K = cfg.max_peaks
-    dev = phi.device
+    with profiling.span("peaks.search"):
+        batch_shape = phi.shape[:-1]
+        phi2 = phi.reshape(-1, phi.shape[-1])
+        B = phi2.shape[0]
+        K = cfg.max_peaks
+        dev = phi.device
 
-    taus_np, fs_np = _coarse_axes(cfg)
-    nx, ny = taus_np.size, fs_np.size
-    taus_ax = torch.from_numpy(taus_np).to(dev)
-    fs_ax = torch.from_numpy(fs_np).to(dev)
-    Z = spectrum_grid(phi2, taus_ax, fs_ax, Nb, Nd)  # (B, ny, nx)
-    mask = _local_max_mask(Z)
-    scores = torch.where(mask, Z, -torch.inf).reshape(B, ny * nx)
-    vals, idx = torch.topk(scores, K, dim=-1)
-    valid = torch.isfinite(vals)
-    tau0 = torch.where(valid, taus_ax[idx % nx], cfg.delay_min)
-    f0 = torch.where(valid, fs_ax[idx // nx], cfg.doppler_min)
+        with profiling.span("peaks.coarse"):
+            taus_np, fs_np = _coarse_axes(cfg)
+            nx, ny = taus_np.size, fs_np.size
+            taus_ax = torch.from_numpy(taus_np).to(dev)
+            fs_ax = torch.from_numpy(fs_np).to(dev)
+            Z = spectrum_grid(phi2, taus_ax, fs_ax, Nb, Nd)  # (B, ny, nx)
+        with profiling.span("peaks.select"):
+            mask = _local_max_mask(Z)
+            scores = torch.where(mask, Z, -torch.inf).reshape(B, ny * nx)
+            vals, idx = torch.topk(scores, K, dim=-1)
+            valid = torch.isfinite(vals)
+            tau0 = torch.where(valid, taus_ax[idx % nx], cfg.delay_min)
+            f0 = torch.where(valid, fs_ax[idx // nx], cfg.doppler_min)
 
-    tau_r, f_r, h_r = _refine(phi2, tau0, f0, cfg, Nb, Nd)
-    h_r = torch.where(valid, h_r, -torch.inf)
+        with profiling.span("peaks.refine"):
+            tau_r, f_r, h_r = _refine(phi2, tau0, f0, cfg, Nb, Nd)
+            h_r = torch.where(valid, h_r, -torch.inf)
 
-    order = torch.argsort(-h_r, dim=-1, stable=True)
-    tau_r = torch.gather(tau_r, -1, order)
-    f_r = torch.gather(f_r, -1, order)
-    h_r = torch.gather(h_r, -1, order)
-    valid = torch.gather(valid, -1, order)
-    return PeakResult(
-        tau=tau_r.reshape(*batch_shape, K),
-        f=f_r.reshape(*batch_shape, K),
-        height=h_r.reshape(*batch_shape, K),
-        valid=valid.reshape(*batch_shape, K),
-    )
+            order = torch.argsort(-h_r, dim=-1, stable=True)
+            tau_r = torch.gather(tau_r, -1, order)
+            f_r = torch.gather(f_r, -1, order)
+            h_r = torch.gather(h_r, -1, order)
+            valid = torch.gather(valid, -1, order)
+        return PeakResult(
+            tau=tau_r.reshape(*batch_shape, K),
+            f=f_r.reshape(*batch_shape, K),
+            height=h_r.reshape(*batch_shape, K),
+            valid=valid.reshape(*batch_shape, K),
+        )

@@ -58,6 +58,7 @@ from admmnet_tpu_torch.ops.projections import (
     psd_project_newton_schulz,
     psd_project_polar,
 )
+from admmnet_tpu_torch.utils import profiling
 
 
 class ADMMResult(NamedTuple):
@@ -231,41 +232,42 @@ def admm_solve_fixed(y, b, sigma, num_iters: int, lambda_val: float = 1.0,
     for fused_exact), as the JAX package does off the TPU; the kernel's
     planes hold at most 128.
     """
-    opts = opts or ADMMOptions()
-    y = torch.as_tensor(y).to(COMPLEX)
-    b = torch.as_tensor(b).to(COMPLEX).to(y.device)
-    batch = y.shape[:-1]
-    n = y.shape[-1]
-    dev = y.device
+    with profiling.span("solver.solve"):
+        opts = opts or ADMMOptions()
+        y = torch.as_tensor(y).to(COMPLEX)
+        b = torch.as_tensor(b).to(COMPLEX).to(y.device)
+        batch = y.shape[:-1]
+        n = y.shape[-1]
+        dev = y.device
 
-    if opts.g_update in ("fused_fast", "fused_exact") and (
-            n + 1 > MAX_SIDE or opts.phi_update != "diag"):
-        fallback = "polar" if opts.g_update == "fused_exact" else "polar_fast"
-        reason = (f"lifted size {n + 1} > {MAX_SIDE}" if n + 1 > MAX_SIDE else
-                  f"phi_update={opts.phi_update!r} (the fused solve implements 'diag')")
-        warnings.warn(
-            f"g_update={opts.g_update!r} falling back to the scan path with "
-            f"g_update={fallback!r}: {reason}",
-            stacklevel=2,
-        )
-        opts = dataclasses.replace(opts, g_update=fallback)
+        if opts.g_update in ("fused_fast", "fused_exact") and (
+                n + 1 > MAX_SIDE or opts.phi_update != "diag"):
+            fallback = "polar" if opts.g_update == "fused_exact" else "polar_fast"
+            reason = (f"lifted size {n + 1} > {MAX_SIDE}" if n + 1 > MAX_SIDE else
+                      f"phi_update={opts.phi_update!r} (the fused solve implements 'diag')")
+            warnings.warn(
+                f"g_update={opts.g_update!r} falling back to the scan path with "
+                f"g_update={fallback!r}: {reason}",
+                stacklevel=2,
+            )
+            opts = dataclasses.replace(opts, g_update=fallback)
 
-    if opts.g_update in ("fused_fast", "fused_exact"):
-        yb = y.reshape(-1, n).contiguous()
-        bb = torch.broadcast_to(b, y.shape).reshape(-1, n).contiguous()
-        s = torch.broadcast_to(
-            torch.as_tensor(sigma, dtype=torch.float32, device=dev), batch
-        ).reshape(-1)
-        out = admm_solve_fused_fast(yb, bb, s, num_iters, opts.rho, lambda_val,
-                                    kblk=opts.fused_kblk, **fused_kernel_options(opts))
-        return out.reshape(*batch, n)
+        if opts.g_update in ("fused_fast", "fused_exact"):
+            yb = y.reshape(-1, n).contiguous()
+            bb = torch.broadcast_to(b, y.shape).reshape(-1, n).contiguous()
+            s = torch.broadcast_to(
+                torch.as_tensor(sigma, dtype=torch.float32, device=dev), batch
+            ).reshape(-1)
+            out = admm_solve_fused_fast(yb, bb, s, num_iters, opts.rho, lambda_val,
+                                        kblk=opts.fused_kblk, **fused_kernel_options(opts))
+            return out.reshape(*batch, n)
 
-    A = _constraint_weight(sigma, batch, n, dev)
-    lam_inv_sq = 1.0 / (lambda_val**2)
-    phi = torch.zeros((*batch, n), dtype=COMPLEX, device=dev)
-    G = torch.zeros((*batch, n + 1, n + 1), dtype=COMPLEX, device=dev)
-    Z = torch.zeros_like(G)
-    for _ in range(num_iters):
-        phi, _, G, Z, _ = _iteration(y, b, A, lam_inv_sq, G, Z, opts)
-    return phi
+        A = _constraint_weight(sigma, batch, n, dev)
+        lam_inv_sq = 1.0 / (lambda_val**2)
+        phi = torch.zeros((*batch, n), dtype=COMPLEX, device=dev)
+        G = torch.zeros((*batch, n + 1, n + 1), dtype=COMPLEX, device=dev)
+        Z = torch.zeros_like(G)
+        for _ in range(num_iters):
+            phi, _, G, Z, _ = _iteration(y, b, A, lam_inv_sq, G, Z, opts)
+        return phi
 

@@ -56,6 +56,7 @@ from admmnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoi
 from admmnet_tpu_torch.train.losses import basic_anm_loss, phi_alignment_loss
 from admmnet_tpu_torch.train.metrics_io import MetricsWriter
 from admmnet_tpu_torch.train.schedules import sgdr_schedule
+from admmnet_tpu_torch.utils import profiling
 from admmnet_tpu_torch.utils.retry import device_retry
 
 # position-matched test-metric tolerance (peaks/metrics.py, eval_net)
@@ -264,20 +265,29 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
     logged through ``log_fn``; the update itself is not, so a retry never
     applies it twice.  Under a fleet (``group``) nothing is retried: a rank
     that repeats a collective would wait on ranks that have moved on.
+
+    Spans (``utils.profiling``): ``train.step`` around ``train.forward``,
+    ``train.loss``, ``train.backward`` (with the zero-fill of leaves the
+    loss misses), ``train.clip`` and ``train.optimizer``; ``eval.step``
+    around ``eval.forward`` and ``eval.loss``.
     """
     params = [p for g in optimizer.param_groups for p in g["params"]]
     world = dist.get_world_size(group) if group is not None else 1
 
-    def loss_and_aux(net, batch):
-        if mode == "e2e":
-            tau, f, conf, phi = net(batch["y"], batch["b"], batch["sigma"])
-            total, _ = basic_anm_loss(tau, f, conf, phi, batch["tau"], batch["f"],
-                                      batch["L_true"], assignment=assignment,
-                                      spectral_weight=spectral_weight, spec=model.cfg.spec)
-            return total, {"tau": tau, "f": f, "conf": conf}
-        phi = net(batch["y"], batch["b"], batch["sigma"])
-        total, _ = phi_alignment_loss(phi, batch["phi"])
-        return total, {}
+    def loss_and_aux(net, batch, stage: str):
+        """The loss and the head's outputs; ``stage`` ("train" or "eval")
+        names the forward's and the loss's spans."""
+        with profiling.span(stage + ".forward"):
+            out = net(batch["y"], batch["b"], batch["sigma"])
+        with profiling.span(stage + ".loss"):
+            if mode == "e2e":
+                tau, f, conf, phi = out
+                total, _ = basic_anm_loss(tau, f, conf, phi, batch["tau"], batch["f"],
+                                          batch["L_true"], assignment=assignment,
+                                          spectral_weight=spectral_weight, spec=model.cfg.spec)
+                return total, {"tau": tau, "f": f, "conf": conf}
+            total, _ = phi_alignment_loss(out, batch["phi"])
+            return total, {}
 
     def retried(fn):
         return fn if group is not None else device_retry(fn, log_fn=log_fn)
@@ -286,22 +296,26 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
     def gradients(batch):
         """The clipped gradients of the batch's loss; the loss."""
         optimizer.zero_grad(set_to_none=True)
-        total, _ = loss_and_aux(ddp if ddp is not None else model, batch)
-        total.backward()
-        for p in params:  # optax updates (and decays) parameters the loss misses too
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_by_global_norm_(params, grad_clip)
+        total, _ = loss_and_aux(ddp if ddp is not None else model, batch, "train")
+        with profiling.span("train.backward"):
+            total.backward()
+            for p in params:  # optax updates (and decays) parameters the loss misses too
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with profiling.span("train.clip"):
+            clip_by_global_norm_(params, grad_clip)
         return total.detach()
 
     def train_step(batch, step: int):
-        model.train()
-        lr = schedule(step)
-        for g in optimizer.param_groups:
-            g["lr"] = g["scale"] * lr
-        total = gradients(batch)
-        optimizer.step()
-        return total
+        with profiling.span("train.step"):
+            model.train()
+            lr = schedule(step)
+            for g in optimizer.param_groups:
+                g["lr"] = g["scale"] * lr
+            total = gradients(batch)
+            with profiling.span("train.optimizer"):
+                optimizer.step()
+            return total
 
     def global_sums(*vals):
         """The values summed over the ranks (float64 on the wire, returned
@@ -315,30 +329,31 @@ def build_steps(model: torch.nn.Module, optimizer: torch.optim.AdamW, mode: str,
     @retried
     @torch.no_grad()
     def eval_step(batch):
-        model.eval()
-        total, aux = loss_and_aux(model, batch)
-        if mode != "e2e":
-            (total,) = global_sums(total)
-            return total / world, {}
-        L = batch["L_true"]
-        if assignment == "perm":
-            t_num, f_num, count = _matched_rmse_pair_parts(aux["tau"], aux["f"], batch["tau"],
-                                                           batch["f"], L)
-        else:
-            t_num, count = _masked_rmse_parts(aux["tau"], batch["tau"], L)
-            f_num, _ = _masked_rmse_parts(aux["f"], batch["f"], L)
-        tp, fp, fn = _detection_counts_dev(aux["conf"], L, conf_threshold)
-        mtp, mfp, mfn, m_tau_sse, m_f_sse = _matched_detection_dev(
-            aux["tau"], aux["f"], aux["conf"], batch["tau"], batch["f"], L,
-            MATCH_TOL, conf_threshold)
-        total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn, m_tau_sse, m_f_sse = global_sums(
-            total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn,
-            torch.as_tensor(m_tau_sse), torch.as_tensor(m_f_sse))
-        denom = torch.clamp_min(count, 1)
-        metrics = {"tau_rmse": t_num / denom, "f_rmse": f_num / denom, "tp": tp, "fp": fp,
-                   "fn": fn, "mtp": mtp, "mfp": mfp, "mfn": mfn, "m_tau_sse": m_tau_sse,
-                   "m_f_sse": m_f_sse}
-        return total / world, metrics
+        with profiling.span("eval.step"):
+            model.eval()
+            total, aux = loss_and_aux(model, batch, "eval")
+            if mode != "e2e":
+                (total,) = global_sums(total)
+                return total / world, {}
+            L = batch["L_true"]
+            if assignment == "perm":
+                t_num, f_num, count = _matched_rmse_pair_parts(aux["tau"], aux["f"],
+                                                               batch["tau"], batch["f"], L)
+            else:
+                t_num, count = _masked_rmse_parts(aux["tau"], batch["tau"], L)
+                f_num, _ = _masked_rmse_parts(aux["f"], batch["f"], L)
+            tp, fp, fn = _detection_counts_dev(aux["conf"], L, conf_threshold)
+            mtp, mfp, mfn, m_tau_sse, m_f_sse = _matched_detection_dev(
+                aux["tau"], aux["f"], aux["conf"], batch["tau"], batch["f"], L,
+                MATCH_TOL, conf_threshold)
+            (total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn, m_tau_sse,
+             m_f_sse) = global_sums(total, t_num, f_num, count, tp, fp, fn, mtp, mfp, mfn,
+                                    torch.as_tensor(m_tau_sse), torch.as_tensor(m_f_sse))
+            denom = torch.clamp_min(count, 1)
+            metrics = {"tau_rmse": t_num / denom, "f_rmse": f_num / denom, "tp": tp, "fp": fp,
+                       "fn": fn, "mtp": mtp, "mfp": mfp, "mfn": mfn, "m_tau_sse": m_tau_sse,
+                       "m_f_sse": m_f_sse}
+            return total / world, metrics
 
     return train_step, eval_step
 

@@ -1,0 +1,8 @@
+"""Host milliseconds per peak search (the program's ``peaks.search`` span)
+spent in its ``peaks.coarse`` span, over the traced window."""
+
+from gpubench.program_spans import ms_per
+
+
+def read(ctx):
+    return ms_per("peaks.coarse", "peaks.search")

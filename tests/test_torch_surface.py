@@ -103,11 +103,11 @@ def test_cli_plot_flags(tmp_path, capsys):
 
 
 def test_step_timer_and_timed_fetch():
-    from admmnet_tpu_torch.utils.profiling import StepTimer, nvtx_range, timed_fetch
+    from admmnet_tpu_torch.utils.profiling import StepTimer, span, timed_fetch
 
     t = StepTimer(items_per_step=10)
     for _ in range(3):
-        with t.step(), nvtx_range("step"):
+        with t.step(), span("step"):
             pass
     s = t.summary()
     assert s["steps"] == 3 and s["items_per_s"] > 0
