@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     # Mr, Mi, Pr, Pi, B, P, m, coeffs, nsteps, hi_steps, bf16_store, stream
@@ -55,6 +56,10 @@ SIGNATURES = {
     # degree, three_pass, stream
     "cheb_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P),
+    # phi, S, DcT, taus, fs, rel, tau, f, height, valid, B, Nb, Nd, ny, nx, K, P,
+    # smem, iters, one_pass, tau_lo, tau_hi, f_lo, f_hi, half_t, half_f, reduce, stream
+    "peak_search_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _P),
 }
 
 _lock = threading.Lock()

@@ -29,9 +29,11 @@ The spans the program opens, by where they are:
   ``eval.loss``): ``train/trainer.py``'s ``build_steps``;
 - ``loader.wait``: ``data/loader.py``'s ``PrefetchLoader``, the consumer
   waiting for one batch;
-- ``peaks.search`` around ``peaks.coarse`` (the axes and the coarse
-  spectrum), ``peaks.select`` (local maxima, top-k, the seeds) and
-  ``peaks.refine`` (the zoom and the final sort): ``peaks/search.py``;
+- ``peaks.search``: ``peaks/search.py``'s ``find_peaks``, around the one
+  launch of the peak-search kernel on the card; on the CPU, around the
+  plain version's ``peaks.coarse`` (the axes and the coarse spectrum),
+  ``peaks.select`` (local maxima, top-k, the seeds) and ``peaks.refine``
+  (the zoom and the final sort);
 - ``solver.solve``: ``solver/admm.py``'s ``admm_solve_fixed``;
 - ``models.glayer``: ``GLayer.forward``; ``models.glayer_bwd``: the
   Clenshaw backward that launches K6 (``kernels/cheb_filter.py``).

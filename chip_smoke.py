@@ -6,8 +6,9 @@ card, after building the CUDA kernels from ``admmnet_tpu_torch/kernels/csrc``
 and holding each kernel against its plain PyTorch version:
 
 - the classical detection pipeline (phases 3-9): anchor / random-SNR scenes
-  -> batched ADMM solve -> peak list -> detection score, and the fused
-  modes' fallback to the per-step loop above a lifted side of 128 (phase 8);
+  -> batched ADMM solve -> peak list (the peak-search kernel against its
+  plain version in phase 4) -> detection score, and the fused modes'
+  fallback to the per-step loop above a lifted side of 128 (phase 8);
 - the learned pipeline (phases 10-13): the committed net-3 checkpoint
   (chebyshev GLayer on the Clenshaw kernel, spectrum head) on the 512
   random-SNR scenes, held against the JAX package's golden output;
@@ -69,7 +70,9 @@ and exits non-zero without one.  ``python3 chip_smoke.py --time-cheb``
 runs only phases 12 and 17's timing of K4 and K5 (``time_cheb``) and
 ``--time-k6`` only phase 17's timing of K6 (``time_k6``),
 ``--time-polar`` only K1's and K7's timing (``time_polar``),
-``--time-deploy`` only phase 9's classical deploy point (``time_deploy``)
+``--time-deploy`` only phase 9's classical deploy point (``time_deploy``),
+``--time-peaks`` only the peak-search kernel against its plain version
+(``time_peaks``)
 and ``--codegen`` only phase 2's registers, spills and HMMA counts
 (``codegen``), to pair two trees; ``python3 chip_smoke.py --profile-k2``
 only phase 25, the subtraction profile of K2 by its ``ablate`` variants
@@ -206,6 +209,8 @@ POLAR_BODY = ("one CTA per matrix or instance (a cluster of two at P = 128), the
 POLAR_REPS = 10  # timed calls of K1 per mode (--time-polar; the median is reported)
 K7_REPS = 3  # timed calls of K7 per projection depth (--time-polar)
 DEPLOY_REPS = 5  # timed calls of the classical deploy point (--time-deploy)
+PEAK_REPS = 10  # timed calls of the peak search a batch (--time-peaks; the median is reported)
+B_TIME_PEAKS = (1, 8192)  # a single scene's request and the deploy batch
 
 # Tolerances, with their reasons:
 # - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py) for the
@@ -380,6 +385,26 @@ PHI_LABEL_NMSE_TOL = EXACT_NMSE_TOL
 PHI_GOLDEN_STEP1_TOL = 0.1
 PHI_EMUL_LOSS_TOL = (2e-3, 1e-3, 0.4)
 PHI_EMUL_PARAM_TOL = 1.0
+# - the peak-search kernel vs its plain version on the same phi (phase 4,
+#   tests/test_torch_cuda.py): as many valid entries; tau and f within one
+#   final refine step; heights within PEAK_H_TOL of the scene's top.  The
+#   kernel sums every product in the plain version's order, and at B = 1,
+#   7 and 8192 on K2's and random phi the two agree bit for bit (a largest
+#   gap of 0 at both tiers, measured on an H100); a sum in another order
+#   would move an fp32 height ~1e-7 of the top and, at "default", could
+#   flip the bf16 rounding of one S Phi term (2^-8 of it).  The control:
+#   the kernel at one tier against the plain version at the other sits at
+#   least 4.8e-4 of the top away in every scene by heights alone (and a
+#   final refine step away in position), so 1e-4 tells the tiers apart.
+#   Against the spectrum in float64 at the kernel's points
+#   (PEAK_REAL_TOL) the tier's own error counts too: bf16 operands (2^-9 a
+#   part) move a height ~1e-2.
+PEAK_H_TOL = {"highest": 1e-5, "default": 1e-4}
+PEAK_REAL_TOL = {"highest": 1e-4, "default": 2e-2}
+# - a near tie of the fp32 coarse grid, over the scene's top: there two
+#   summation orders of the same spectrum may pick different seeds, and a
+#   scene may differ if every peak of the kernel's is a real one
+PEAK_TIE_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -404,6 +429,106 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = a.reshape(a.shape[0], -1)
     b = b.reshape(b.shape[0], -1)
     return torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)
+
+
+def peak_final_step(cfg):
+    """(delay, doppler) spacing of the last refine round's grid, with room
+    for the rounding of the window's points."""
+    step = 2 * cfg.reduce_factor ** (cfg.refine_iters - 1) / (cfg.refine_points - 1)
+    return step * cfg.delay_step * (1 + 1e-3), step * cfg.doppler_step * (1 + 1e-3)
+
+
+def peak_height_gap(pk, pp, cfg, anywhere: bool = False) -> torch.Tensor:
+    """Per scene, over the scene's top (pp's highest): the largest, over the
+    valid entries of either list, of the smallest height difference to a
+    valid entry of the other within one final refine step in tau and f
+    (inf where an entry has none), or to any valid entry with
+    ``anywhere``."""
+    st, sf = peak_final_step(cfg)
+    both = pk.valid[:, :, None] & pp.valid[:, None, :]
+    if not anywhere:
+        both = both & (((pk.tau[:, :, None] - pp.tau[:, None, :]).abs() <= st)
+                       & ((pk.f[:, :, None] - pp.f[:, None, :]).abs() <= sf))
+    top = pp.height[:, :1, None].clamp_min(1e-30)
+    dh = torch.where(both, (pk.height[:, :, None] - pp.height[:, None, :]).abs() / top,
+                     torch.inf)
+    return torch.maximum(torch.where(pk.valid, dh.amin(-1), 0.0).amax(-1),
+                         torch.where(pp.valid, dh.amin(1), 0.0).amax(-1))
+
+
+def peak_lists_match(pk, pp, cfg, h_tol=None) -> torch.Tensor:
+    """Per scene: the kernel's list pk holds the plain version's pp: as many
+    valid entries; each valid entry of either within one final refine step
+    (tau, f) and ``h_tol`` (PEAK_H_TOL at the tier) of the top (height) of
+    one of the other's (the orders may differ where two heights are that
+    close); padded entries at height -inf, at the plain version's padded
+    point."""
+    st, sf = peak_final_step(cfg)
+    h_tol = PEAK_H_TOL[cfg.refine_precision] if h_tol is None else h_tol
+    pads = (~pk.valid & ((pk.height != -torch.inf) | ((pk.tau - pp.tau[:, -1:]).abs() > st)
+                         | ((pk.f - pp.f[:, -1:]).abs() > sf))).any(-1)
+    return ((pk.valid.sum(-1) == pp.valid.sum(-1)) & (peak_height_gap(pk, pp, cfg) <= h_tol)
+            & ~pads)
+
+
+def peak_real_heights(phi, pk, cfg, Nb=10, Nd=10) -> torch.Tensor:
+    """Per scene: every valid height of pk within PEAK_REAL_TOL of the top
+    of |<phi, a(tau, f)>|^2 at its point, in float64."""
+    m = torch.arange(Nb, dtype=torch.float64, device=phi.device)
+    k = torch.arange(Nd, dtype=torch.float64, device=phi.device)
+    s = torch.exp(2j * np.pi * pk.f.double()[..., None] * m)
+    dc = torch.exp(-2j * np.pi * pk.tau.double()[..., None] * k)
+    Phi = phi.to(torch.complex128).conj().reshape(-1, Nb, Nd)
+    z = torch.abs(torch.einsum("bkm,bmd,bkd->bk", s, Phi, dc)) ** 2
+    top = z.amax(-1, keepdim=True).clamp_min(1e-30)
+    err = torch.where(pk.valid, (pk.height.double() - z).abs(), 0.0)
+    return (err <= PEAK_REAL_TOL[cfg.refine_precision] * top).all(-1)
+
+
+def peak_coarse_near_ties(phi, cfg, Nb=10, Nd=10) -> torch.Tensor:
+    """Per scene: whether the plain version's coarse grid decides its K
+    seeds at a near tie (PEAK_TIE_RTOL of the scene's top): a point within
+    it of its largest neighbour, at or above the K-th candidate, or the
+    K-th candidate within it of the next."""
+    import torch.nn.functional as F
+
+    from admmnet_tpu_torch.peaks.search import search_constants
+    from admmnet_tpu_torch.peaks.spectrum import spectrum_grid
+
+    c = search_constants(cfg, Nb, Nd, phi.device)
+    K = cfg.max_peaks
+    out = []
+    for i in range(0, phi.shape[0], 1024):
+        Z = spectrum_grid(phi[i:i + 1024], c.taus, c.fs, Nb, Nd)
+        ny, nx = Z.shape[1:]
+        padded = F.pad(Z, (1, 1, 1, 1), value=-torch.inf)
+        nbr = torch.stack([padded[:, 1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx]
+                           for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx]).amax(0)
+        tol = PEAK_TIE_RTOL * Z.amax(dim=(1, 2))
+        scores = torch.where(Z >= nbr, Z, -torch.inf).reshape(Z.shape[0], -1)
+        top = torch.topk(scores, K + 1, dim=-1).values
+        kth = top[:, K - 1]
+        edge = torch.isfinite(top[:, K]) & (kth - top[:, K] <= tol)
+        close = ((Z - nbr).abs() <= tol[:, None, None]) & (Z >= (kth - tol)[:, None, None])
+        out.append(edge | close.flatten(1).any(-1))
+    return torch.cat(out)
+
+
+def peak_lists_held(phi, pk, pp, cfg, Nb=10, Nd=10):
+    """(scenes whose lists differ, of them those not explained): the
+    kernel's lists pk and the plain version's pp on the same phi may differ
+    only in a scene whose coarse grid decides a seed at a near tie, and
+    there every valid peak of the kernel's must be a real one."""
+    from admmnet_tpu_torch.peaks import PeakResult
+
+    differ = ~peak_lists_match(pk, pp, cfg)
+    if not bool(differ.any()):
+        return 0, 0
+    ties = peak_coarse_near_ties(phi, cfg, Nb, Nd)
+    real = torch.ones_like(differ)
+    real[differ] = peak_real_heights(phi[differ], PeakResult(*(x[differ] for x in pk)), cfg,
+                                     Nb, Nd)
+    return int(differ.sum()), int((differ & ~(ties & real)).sum())
 
 
 def k2_one_pass_gate(e: torch.Tensor):
@@ -1375,6 +1500,54 @@ class Smoke:
                   f"K2's first low step n={n} disagrees with its emulation")
         self.kernels["K2"] = {"max_abs_err": worst_abs}
 
+    def peaks_vs_plain(self):
+        """The peak-search kernel (``find_peaks`` on the card) against its
+        plain version (``find_peaks_plain``) on the same K2 phi at the
+        detection budget with PRODUCTION_PEAKS, at B = 1 and 8192
+        (``peak_lists_held`` at PEAK_H_TOL); then both timed at the deploy
+        batch, the median of PEAK_REPS calls each, for the kernels line."""
+        from admmnet_tpu_torch.core.config import DETECTION_BUDGET_ITERS, PRODUCTION_PEAKS
+        from admmnet_tpu_torch.data.anchor import make_anchor_batch
+        from admmnet_tpu_torch.peaks import PeakResult, find_peaks
+        from admmnet_tpu_torch.peaks.search import find_peaks_plain
+        from admmnet_tpu_torch.solver import admm_solve_fixed
+
+        cfg = PRODUCTION_PEAKS
+        tol = PEAK_H_TOL[cfg.refine_precision]
+        y, b, s = to_dev(self.dev, *make_anchor_batch(max(B_TIME_PEAKS), "redemod", seed=0))
+        phi_all = admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0, self.prod)
+        worst_abs = 0.0
+        for B in B_TIME_PEAKS:
+            phi = phi_all[:B].contiguous()
+            pk = find_peaks(phi, 10, 10, cfg)
+            pp = PeakResult(*find_peaks_plain(phi, 10, 10, cfg))
+            torch.cuda.synchronize()
+            gap = peak_height_gap(pk, pp, cfg)
+            near = torch.isfinite(gap)
+            worst = float(gap[near].max()) if bool(near.any()) else 0.0
+            if bool(near.any()):
+                worst_abs = max(worst_abs, float((gap[near] * pp.height[near, 0]).max()))
+            n_differ, n_bad = peak_lists_held(phi, pk, pp, cfg)
+            ordered = bool((pk.height[:, 1:] <= pk.height[:, :-1]).all())
+            log(f"[4 peaks] B={B}, K2 phi at the detection budget, PRODUCTION_PEAKS: valid "
+                f"entries {int(pk.valid.sum())} (plain {int(pp.valid.sum())}), largest height "
+                f"gap {worst:.3e} of the top (tol {tol:g}), {int((~near).sum())} scenes with a "
+                f"peak more than a final refine step from the plain version's; {n_differ} "
+                f"scenes differ, {n_bad} of them not at a near tie of the coarse grid with "
+                f"real peaks (must be 0); heights descending {ordered}")
+            check(n_bad == 0 and ordered, f"the peak-search kernel disagrees with its plain "
+                                          f"version at B={B}")
+        B = max(B_TIME_PEAKS)
+        ms = float(np.median(call_ms(lambda: find_peaks(phi_all, 10, 10, cfg).tau, PEAK_REPS)))
+        pms = float(np.median(call_ms(lambda: find_peaks_plain(phi_all, 10, 10, cfg)[0],
+                                      PEAK_REPS)))
+        bms, by = peak_search_bound(B, cfg)
+        log(f"[4 time peaks] B={B}, PRODUCTION_PEAKS: kernel {ms:.4f} ms, plain {pms:.4f} ms "
+            f"a call (median of {PEAK_REPS}); bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it) "
+            f"[{self.card}]")
+        self.kernels["peaks"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": pms,
+                                 "bound_ms": bms, "bound_by": by, "library_ms": None}
+
     # 5 -------------------------------------------------------------------
     def golden_gates(self):
         from admmnet_tpu_torch.core.config import ADMMOptions
@@ -1563,8 +1736,8 @@ class Smoke:
         top = "; ".join(f"{name[:48]} {t / busy:.1%}" for name, t in kernels[:5])
         log(f"[9 profile deploy] B={B_TIME_K2}: device busy {busy / 1e3:.2f} ms of a "
             f"{window_us / 1e3:.2f} ms window ({busy / window_us:.1%}); K2 {k2_us / busy:.1%} "
-            f"of device time, the rest (the peak search's products, max-pool and top-k, and "
-            f"the solve's input rows) {1 - k2_us / busy:.1%} in {len(kernels) - 1} kernel "
+            f"of device time, the rest (the peak-search kernel and the solve's input rows) "
+            f"{1 - k2_us / busy:.1%} in {len(kernels) - 1} kernel "
             f"names; by device time: {top} {tag}")
 
     # 10 ------------------------------------------------------------------
@@ -2672,7 +2845,7 @@ class Smoke:
 
 
 def main() -> int:
-    from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, polar
+    from admmnet_tpu_torch.kernels import cheb_filter, fused_admm_fast, peak_search, polar
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's smoke test needs one GPU")
@@ -2683,16 +2856,19 @@ def main() -> int:
     sm.tc_sass()
     sm.k1_vs_plain()
     sm.k2_vs_plain()
+    sm.peaks_vs_plain()
     # 8: the main path's launches are counted from here to the end of phase 7
     polar.launches.reset()
     fused_admm_fast.launches.reset()
+    peak_search.launches.reset()
     sm.golden_gates()
     sm.main_path()
     sm.random_gate()
-    counts = {"K1": polar.launches.count, "K2": fused_admm_fast.launches.count}
+    counts = {"K1": polar.launches.count, "K2": fused_admm_fast.launches.count,
+              "peaks": peak_search.launches.count}
     log(f"[8 launches] main path (phases 5-7): K1 polar {counts['K1']}, "
-        f"K2 fused {counts['K2']} (each must be > 0)")
-    check(counts["K1"] > 0 and counts["K2"] > 0, "a kernel of the main path never launched")
+        f"K2 fused {counts['K2']}, peak search {counts['peaks']} (each must be > 0)")
+    check(min(counts.values()) > 0, "a kernel of the main path never launched")
     sm.fused_fallback()
     sm.timings()
     sm.k4_vs_plain()
@@ -2764,6 +2940,8 @@ def main() -> int:
                "admmnet_tpu/kernels/fused_admm_fast.py:492"),
         "K7": ("fused_admm", "admmnet_tpu_torch/kernels/csrc/fused_admm.cu",
                "admmnet_tpu/kernels/fused_admm.py:209"),
+        # replaces no TPU kernel: the JAX package searches with XLA ops
+        "peaks": ("peak_search", "admmnet_tpu_torch/kernels/csrc/peak_search.cu", None),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2865,6 +3043,70 @@ def time_deploy() -> int:
     log(f"[time deploy] {ROOT} B={B_TIME_K2}: median {np.median(calls) / B_TIME_K2:.5f} "
         f"ms/scene ({np.median(calls):.2f} ms a call); calls "
         f"{' '.join(f'{t:.2f}' for t in calls)} [{card()}]")
+    return 0
+
+
+def peak_search_bound(B: int, cfg, Nb: int = 10, Nd: int = 10):
+    """(least ms, what bounds it) of the peak search of B scenes: the
+    benchmark's count of its operations and bytes (gpubench/flops/
+    classical_deploy.py: two complex products on the coarse grid, two per
+    refine round and peak, 8 real operations a complex multiply-add; phi
+    in, the lists out) at the fp32 SIMT peak (the kernel runs every
+    product, the one-pass ones too, on the SIMT cores) or at 3.35 TB/s,
+    the larger."""
+    import dataclasses
+
+    from gpubench.flops.classical_deploy import peaks_bytes, peaks_flops
+
+    return bound(peaks_flops(B, Nb, Nd, dataclasses.asdict(cfg)),
+                 peaks_bytes(B, Nb * Nd, cfg.max_peaks))
+
+
+def time_peaks() -> int:
+    """``--time-peaks``: the peak-search kernel (``find_peaks`` on the card)
+    and its plain version (``find_peaks_plain``) at B = 1 and 8192 on K2's
+    phi at the detection budget with PRODUCTION_PEAKS, the median of
+    PEAK_REPS back-to-back CUDA-event calls each (a call's time: at B = 1
+    the host's enqueue can set it), the kernel's device time a call under
+    torch.profiler, its bound, and ptxas's report of
+    ``csrc/peak_search.cu`` (when this process built the library).  The
+    plain version is the parent tree's path on the card, so one tree times
+    both."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the peak search's timing needs one GPU")
+    from admmnet_tpu_torch.core.config import (
+        DETECTION_BUDGET_ITERS,
+        PRODUCTION_PEAKS,
+        ADMMOptions,
+    )
+    from admmnet_tpu_torch.data.anchor import make_anchor_batch
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.peaks import find_peaks
+    from admmnet_tpu_torch.peaks.search import find_peaks_plain
+    from admmnet_tpu_torch.solver import admm_solve_fixed
+
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    tag = f"[{card()}]"
+    for ln in _build.build_logs.get("peak_search.cu", "").splitlines():
+        if "registers" in ln or "spill" in ln:
+            log(f"[time peaks] ptxas peak_search.cu: {ln.strip()}")
+    y, b, s = to_dev(dev, *make_anchor_batch(max(B_TIME_PEAKS), "redemod", seed=0))
+    phi_all = admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0,
+                               ADMMOptions(g_update="fused_fast"))
+    cfg = PRODUCTION_PEAKS
+    for B in B_TIME_PEAKS:
+        phi = phi_all[:B].contiguous()
+        kernel = call_ms(lambda: find_peaks(phi, 10, 10, cfg).tau, PEAK_REPS)
+        plain = call_ms(lambda: find_peaks_plain(phi, 10, 10, cfg)[0], PEAK_REPS)
+        prof = device_profile(lambda: find_peaks(phi, 10, 10, cfg).tau)
+        dev_ms = (sum(t for name, t in prof[2] if "peak_search" in name) / 1e3
+                  if prof is not None else float("nan"))
+        bound_ms, by = peak_search_bound(B, cfg)
+        log(f"[time peaks] {ROOT} B={B}: kernel median {np.median(kernel):.4f} ms a call "
+            f"(device {dev_ms:.4f} ms; bound {bound_ms:.4f} ms, {by}, "
+            f"{bound_ms / dev_ms:.1%} of it), plain median {np.median(plain):.4f} ms; kernel "
+            f"calls {' '.join(f'{t:.4f}' for t in kernel)} {tag}")
     return 0
 
 
@@ -2974,6 +3216,9 @@ if __name__ == "__main__":
     mode.add_argument("--time-deploy", action="store_true",
                       help="time the classical deploy point alone (see time_deploy) and run "
                            "nothing else")
+    mode.add_argument("--time-peaks", action="store_true",
+                      help="time the peak-search kernel and its plain version alone (see "
+                           "time_peaks) and run nothing else")
     mode.add_argument("--profile-k2", action="store_true",
                       help="run K2's subtraction profile alone (phase 25, see k2_profile)")
     mode.add_argument("--parallel", action="store_true",
@@ -2983,6 +3228,7 @@ if __name__ == "__main__":
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
              else time_polar() if args.time_polar else time_deploy() if args.time_deploy
+             else time_peaks() if args.time_peaks
              else codegen() if args.codegen
              else profile_k2() if args.profile_k2 else parallel_only() if args.parallel
              else phi_route_only() if args.phi_route else main())

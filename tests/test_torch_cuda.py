@@ -36,18 +36,35 @@ as far as the kernel sits from it (tests/one_pass_spread.py on an H100),
 so they are held to twice that (K2_ONE_PASS_EDGES).
 """
 
+import sys
+from dataclasses import replace
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from admmnet_tpu_torch.core.config import ADMMOptions
+from admmnet_tpu_torch.core.config import (
+    DETECTION_BUDGET_ITERS,
+    PRODUCTION_PEAKS,
+    ADMMOptions,
+    PeakSearchConfig,
+)
 from admmnet_tpu_torch.data.anchor import ANCHOR_C, ANCHOR_F, ANCHOR_TAU, _psi, make_anchor_batch
 from admmnet_tpu_torch.kernels import cheb_filter as kc
 from admmnet_tpu_torch.kernels import fused_admm as k7
 from admmnet_tpu_torch.kernels import fused_admm_fast as kf
+from admmnet_tpu_torch.kernels import peak_search as kps
 from admmnet_tpu_torch.kernels import polar as kp
 from admmnet_tpu_torch.ops.projections import POLAR_BF16_SCHED2, psd_project_eigh
+from admmnet_tpu_torch.peaks import PeakResult, find_peaks
+from admmnet_tpu_torch.peaks.search import find_peaks_plain
+from admmnet_tpu_torch.solver import admm_solve_fixed
 from admmnet_tpu_torch.solver.admm import fused_kernel_options
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -526,6 +543,134 @@ def test_cheb_filter_fn_backward_on_cuda(cuda):
         grads.append((herm, cg.grad))
     assert _rel(grads[0][0], grads[1][0]) < 2e-2
     assert _rel(grads[0][1], grads[1][1]) < 6e-5
+
+
+# ---- the peak search kernel -------------------------------------------------------
+
+# The kernel is held to the plain version on the same phi by chip_smoke's
+# rules (peak_lists_held): as many valid entries, tau / f within one final
+# refine step, heights within PEAK_H_TOL of the scene's top (its reasons
+# and readings beside it), padded entries as the plain version's; a scene
+# may differ only where the coarse grid decides a seed at a near tie, and
+# there every kernel peak must be a real peak of the spectrum.
+
+
+def _peak_phi(source, B, dev):
+    """phi of B scenes: K2's at the detection budget on anchor scenes, or
+    complex normal noise (many local maxima, none dominant)."""
+    if source == "random":
+        g = torch.Generator().manual_seed(B)
+        return torch.randn(B, 100, dtype=torch.complex64, generator=g).to(dev)
+    y, b, s = (torch.from_numpy(x).to(dev) for x in make_anchor_batch(B, "redemod", seed=B))
+    return admm_solve_fixed(y, b, s, DETECTION_BUDGET_ITERS, 1.0,
+                            ADMMOptions(g_update="fused_fast"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 8192])
+@pytest.mark.parametrize("source", ["k2", "random"])
+@pytest.mark.parametrize("cfg", [PRODUCTION_PEAKS, PeakSearchConfig()],
+                         ids=["production", "default"])
+def test_peak_kernel_matches_plain(cuda, cfg, source, B):
+    """The kernel against the plain version on the card, on the same phi.
+    A scene may differ only where the plain version's coarse grid decides
+    a seed at a near tie (another summation order breaks it the other way,
+    as the benchmark's peak_gap allows), and there every kernel peak is
+    still a real peak of the spectrum."""
+    phi = _peak_phi(source, B, cuda)
+    pk = find_peaks(phi, 10, 10, cfg)
+    pp = PeakResult(*find_peaks_plain(phi, 10, 10, cfg))
+    torch.cuda.synchronize()
+    assert pk.tau.shape == pp.tau.shape == (B, cfg.max_peaks)
+    assert bool((pk.height[:, 1:] <= pk.height[:, :-1]).all())
+    n_differ, n_bad = chip_smoke.peak_lists_held(phi, pk, pp, cfg)
+    assert n_bad == 0, f"{n_bad} of {n_differ} differing scenes not at a near tie"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [PRODUCTION_PEAKS, PeakSearchConfig()],
+                         ids=["production", "default"])
+def test_peak_kernel_tier_control(cuda, cfg):
+    """PEAK_H_TOL tells the refine's tiers apart: the kernel against the
+    plain version at the other tier (one-pass bf16 against fp32, and fp32
+    against one-pass) on K2's phi at B = 8192 fails the lists' match in
+    every scene, and by heights alone, wherever the peaks stand, in every
+    scene too; against the plain version at its own tier it passes."""
+    phi = _peak_phi("k2", 8192, cuda)
+    tiers = ("default", "highest")
+    plain = {t: PeakResult(*find_peaks_plain(phi, 10, 10, replace(cfg, refine_precision=t)))
+             for t in tiers}
+    for t, other in (tiers, tiers[::-1]):
+        c = replace(cfg, refine_precision=t)
+        pk = find_peaks(phi, 10, 10, c)
+        assert bool(chip_smoke.peak_lists_match(pk, plain[t], c).all())
+        assert not bool(chip_smoke.peak_lists_match(pk, plain[other], c).any())
+        heights = chip_smoke.peak_height_gap(pk, plain[other], c, anywhere=True)
+        assert float(heights.min()) > chip_smoke.PEAK_H_TOL[t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [PRODUCTION_PEAKS, PeakSearchConfig()],
+                         ids=["production", "default"])
+def test_peak_kernel_pads_as_plain(cuda, cfg):
+    """Nb = Nd = 2 leaves a few local maxima on the grid, so most of the K
+    entries are padding: refined from (delay_min, doppler_min), height
+    -inf, valid False, last."""
+    g = torch.Generator().manual_seed(5)
+    phi = torch.randn(64, 4, dtype=torch.complex64, generator=g).to(cuda)
+    pk = find_peaks(phi, 2, 2, cfg)
+    pp = PeakResult(*find_peaks_plain(phi, 2, 2, cfg))
+    assert bool((pk.valid.sum(-1) < cfg.max_peaks).all())
+    assert bool(torch.equal(pk.valid, pp.valid))
+    assert bool(chip_smoke.peak_lists_match(pk, pp, cfg).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nb, Nd, cfg", [
+    (4, 4, PeakSearchConfig(max_peaks=32, refine_points=32, refine_iters=3)),
+    (7, 17, PeakSearchConfig(delay_step=0.009, doppler_step=0.0137, max_peaks=5,
+                             refine_precision="default")),
+    (3, 37, PeakSearchConfig(max_peaks=16, refine_points=21, refine_iters=1,
+                             refine_precision="default")),
+], ids=["K32_P32", "grid73x112", "Nd37"])
+def test_peak_kernel_edges_match_plain(cuda, Nb, Nd, cfg):
+    """The kernel's limits (K = P = 32), a grid whose rows are no multiple
+    of the coarse product's four and Nb != Nd, held as at the deploy point."""
+    g = torch.Generator().manual_seed(Nb * Nd)
+    phi = torch.randn(64, Nb * Nd, dtype=torch.complex64, generator=g).to(cuda)
+    pk = find_peaks(phi, Nb, Nd, cfg)
+    pp = PeakResult(*find_peaks_plain(phi, Nb, Nd, cfg))
+    assert bool((pk.height[:, 1:] <= pk.height[:, :-1]).all())
+    n_differ, n_bad = chip_smoke.peak_lists_held(phi, pk, pp, cfg, Nb, Nd)
+    assert n_bad == 0, f"{n_bad} of {n_differ} differing scenes not at a near tie"
+
+
+@pytest.mark.cuda
+def test_peak_kernel_refuses_another_layout(cuda, monkeypatch):
+    """The launcher takes the wrapper's count of the block's shared memory
+    and refuses a launch where it is not the C layout's."""
+    true = kps.smem_bytes
+    monkeypatch.setattr(kps, "smem_bytes", lambda *a: true(*a) + 16)
+    phi = _peak_phi("random", 4, cuda)
+    before = kps.launches.count
+    with pytest.raises(RuntimeError, match="layout"):
+        find_peaks(phi, 10, 10, PRODUCTION_PEAKS)
+    assert kps.launches.count == before
+
+
+@pytest.mark.cuda
+def test_peak_kernel_one_launch_a_call(cuda):
+    """Each find_peaks call on the card is one launch, whatever the batch
+    shape, counted as launches.peaks."""
+    from admmnet_tpu_torch.utils import profiling
+
+    phi = _peak_phi("random", 12, cuda).reshape(3, 4, 100)
+    before = kps.launches.count
+    for i in range(3):
+        out = find_peaks(phi, 10, 10, PRODUCTION_PEAKS)
+        assert kps.launches.count == before + i + 1
+    assert out.tau.shape == (3, 4, PRODUCTION_PEAKS.max_peaks)
+    assert profiling.snapshot()["launches.peaks"]["count"] == kps.launches.count
 
 
 # ---- data parallelism on the card ----------------------------------------------
