@@ -60,6 +60,8 @@ SIGNATURES = {
     # smem, iters, one_pass, tau_lo, tau_hi, f_lo, f_hi, half_t, half_f, reduce, stream
     "peak_search_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _P),
+    # M, w, V, sweeps, B, m, max_sweeps, smem, stream
+    "eigh_jacobi_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

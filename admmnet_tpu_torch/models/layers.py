@@ -112,7 +112,9 @@ class GLayer(nn.Module):
     spectrum, rebuild.
 
     ``mode="eigh"``: eigendecomposition with detached eigenvectors, filter
-    on the eigenvalues, U diag(w') U^H.  ``mode="chebyshev"``: the same
+    on the eigenvalues, U diag(w') U^H; on the card the batched Jacobi
+    kernel in complex64 (``kernels.eigh.eigh_detached``, lifted sides up
+    to its ``MAX_SIDE``), on the CPU ``hermitian_eigh`` in complex128.  ``mode="chebyshev"``: the same
     filter as a Chebyshev matrix function of degree ``cheb_degree``;
     ``cheb_impl="xla"`` evaluates it with ``ops.chebyshev`` at
     ``cheb_precision``, ``cheb_impl="pallas"`` with the Clenshaw kernel.
@@ -165,9 +167,15 @@ class GLayer(nn.Module):
                                               self.cheb_degree, self.cheb_precision)
                 return hermitianize(G)
 
-            w, V = hermitian_eigh(M)
-            w = w.to(torch.float32)
-            V = V.to(COMPLEX).detach()
+            with profiling.span("models.eigh"):
+                if M.is_cuda:
+                    from admmnet_tpu_torch.kernels.eigh import eigh_detached
+
+                    w, V = eigh_detached(M)
+                else:
+                    w, V = hermitian_eigh(M)
+                    w = w.to(torch.float32)
+                    V = V.to(COMPLEX).detach()
             w_new = self.spectral_filter(w).to(COMPLEX)
             G = (V * w_new[..., None, :]) @ torch.conj(V.transpose(-1, -2))
             return hermitianize(G)

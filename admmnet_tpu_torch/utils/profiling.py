@@ -36,7 +36,9 @@ The spans the program opens, by where they are:
   (the zoom and the final sort);
 - ``solver.solve``: ``solver/admm.py``'s ``admm_solve_fixed``;
 - ``models.glayer``: ``GLayer.forward``; ``models.glayer_bwd``: the
-  Clenshaw backward that launches K6 (``kernels/cheb_filter.py``).
+  Clenshaw backward that launches K6 (``kernels/cheb_filter.py``);
+  ``models.eigh``: the eigh GLayer's eigendecomposition inside
+  ``models.glayer`` (on the card the Jacobi kernel, ``launches.eigh``).
 """
 
 from __future__ import annotations

@@ -42,7 +42,11 @@ and holding each kernel against its plain PyTorch version:
   trains through K5/K6 with ``train_cli --phi``, its trunk warm-starts
   runs/spec50k_warm's end-to-end net (``train_cli --init-from``), and
   ``eval_net`` deploys runs/phi10 with classical peak search on the
-  labels' test split.
+  labels' test split;
+- the eigh GLayer's batched Jacobi eigensolver (phase 28) against
+  complex128 ``torch.linalg.eigh``, the GLayer's kernel route against its
+  complex128 route, and upstream's published net (runs/admmnet10: ten
+  layers, eigh GLayers, the attention head) on the card against the CPU.
 
 Precision: the kernels run the JAX package's tiers (README, "PyTorch/CUDA
 port"): K1's low schedule steps and K4/K5's Clenshaw products (the closing
@@ -77,7 +81,8 @@ and ``--codegen`` only phase 2's registers, spills and HMMA counts
 (``codegen``), to pair two trees; ``python3 chip_smoke.py --profile-k2``
 only phase 25, the subtraction profile of K2 by its ``ablate`` variants
 (``k2_profile``); ``--parallel`` only phase 26 (``parallel_only``);
-``--phi-route`` only phase 27 (``phi_route_only``).
+``--phi-route`` only phase 27 (``phi_route_only``); ``--eigh`` only phase 28
+(``eigh_checks``).
 """
 
 from __future__ import annotations
@@ -211,6 +216,34 @@ K7_REPS = 3  # timed calls of K7 per projection depth (--time-polar)
 DEPLOY_REPS = 5  # timed calls of the classical deploy point (--time-deploy)
 PEAK_REPS = 10  # timed calls of the peak search a batch (--time-peaks; the median is reported)
 B_TIME_PEAKS = (1, 8192)  # a single scene's request and the deploy batch
+NET10 = ROOT / "runs" / "admmnet10"  # upstream's published net: 10 layers, eigh G, attention
+# the batched Jacobi eigensolver (kernels/eigh.py) against torch.linalg.eigh
+# in complex128, per matrix.  Its plain version, the same fp32 arithmetic
+# on the CPU, measures at m = 101 on random Hermitian matrices: the
+# reconstruction ||V diag(w) V^H - herm(M)||_F / ||M||_F 1.6e-5, the
+# orthogonality max |V^H V - I| 1.9e-5 and the eigenvalues max |w - w_ref| /
+# max |w_ref| 1.0e-6 (a rotation's rounding, ~u = 6e-8, accumulated over
+# the ~400 large rotations each column takes).  The kernel sums in another
+# order (fused multiply-adds), so it is held to 4-6x those.
+EIGH_REC_TOL = 1e-4
+EIGH_ORTH_TOL = 1e-4
+EIGH_W_TOL = 5e-6
+EIGH_SIDES = (2, 3, 16, 100, 101, 120)  # the layout's edges: odd sides pad, 120 fills the SM
+B_EIGH = (1, 7, 4096)  # one matrix, a ragged batch, the benchmark cell's batch
+# the eigh GLayer on the kernel against the complex128 route (forward,
+# relative Frobenius a matrix; gradients of a random functional of G with
+# respect to phi, h, Z and the layer's parameters, relative norm): the
+# kernel's reconstruction error (1.6e-5 in its plain version), through the
+# filter's rebuild; the gradient flows through fp32 eigenvectors twice
+EIGH_GLAYER_TOL = 1e-4
+EIGH_GLAYER_GRAD_TOL = 1e-3
+# runs/admmnet10 (9 eigh GLayers, the attention head) on the card against
+# the CPU (complex128 eigh there): the plain fp32 Jacobi in the CPU's place
+# measures phi 4.8e-6 (relative, worst scene) and the head 1.3e-6 (absolute)
+# on 8 of the random scenes; held at ~20x for the kernel's other order
+NET10_PHI_TOL = 1e-4
+NET10_HEAD_TOL = 1e-4
+EIGH_REPS = 5  # timed calls of the kernel at B = 4096 (the median is reported)
 
 # Tolerances, with their reasons:
 # - K1 vs eigh: the schedules' own accuracy (tests/test_polar.py) for the
@@ -2923,6 +2956,8 @@ def main() -> int:
         counts[k] += v
     for k, v in sm.phi_route().items():
         counts[k] += v
+    sm.kernels["eigh"] = eigh_checks(sm.dev, f"[{sm.card}]")
+    counts["eigh"] = sm.kernels["eigh"].pop("launches")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     meta = {
@@ -2942,6 +2977,8 @@ def main() -> int:
                "admmnet_tpu/kernels/fused_admm.py:209"),
         # replaces no TPU kernel: the JAX package searches with XLA ops
         "peaks": ("peak_search", "admmnet_tpu_torch/kernels/csrc/peak_search.cu", None),
+        # replaces no TPU kernel: the JAX package's eigh GLayer calls jnp.linalg.eigh
+        "eigh": ("eigh_jacobi", "admmnet_tpu_torch/kernels/csrc/eigh_jacobi.cu", None),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2953,6 +2990,215 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def eigh_edge_batch(m: int, dev) -> dict:
+    """Edge spectra of side m: zero, diagonal, repeated (three clusters of
+    equal eigenvalues in a random basis) and rank one."""
+    g = torch.Generator().manual_seed(m)
+    X = torch.randn(m, m, dtype=torch.complex64, generator=g)
+    Q, _ = torch.linalg.qr(X)
+    reps = torch.tensor([float(i * 3 // m) - 1.0 for i in range(m)])
+    u = torch.randn(m, 1, dtype=torch.complex64, generator=g)
+    cases = {"zero": torch.zeros(m, m, dtype=torch.complex64),
+             "diagonal": torch.diag(torch.randn(m, generator=g)).to(torch.complex64),
+             "repeated": (Q * reps.to(Q.dtype)) @ Q.mH,
+             "rank-1": u @ u.mH}
+    return {k: v[None].to(dev) for k, v in cases.items()}
+
+
+def eigh_errors(M, w, V):
+    """(reconstruction, orthogonality, eigenvalue error) of each matrix:
+    ||V diag(w) V^H - herm(M)||_F / ||M||_F, max |V^H V - I| and max |w -
+    w_ref| / max |w_ref|, w_ref from torch.linalg.eigvalsh in complex128
+    (zero where M is zero)."""
+    H = herm(M).to(torch.complex128)
+    Vd, wd = V.to(torch.complex128), w.to(torch.float64)
+    rec = torch.linalg.norm((Vd * wd.to(Vd.dtype)[..., None, :]) @ Vd.mH - H, dim=(-2, -1))
+    nrm = torch.linalg.norm(H, dim=(-2, -1))
+    eye = torch.eye(M.shape[-1], dtype=Vd.dtype, device=M.device)
+    orth = (Vd.mH @ Vd - eye).abs().amax(dim=(-2, -1))
+    w_ref = torch.linalg.eigvalsh(H)
+    scale = w_ref.abs().amax(-1)
+    w_err = (wd - w_ref).abs().amax(-1)
+    return (torch.where(nrm > 0, rec / nrm.clamp_min(1e-300), rec),
+            orth, torch.where(scale > 0, w_err / scale.clamp_min(1e-300), w_err))
+
+
+def eigh_checks(dev, tag: str) -> dict:
+    """Phase 28: the batched Jacobi eigensolver (kernels/eigh.py) against
+    torch.linalg.eigh in complex128 (random Hermitian matrices at B = 1, 7
+    and 4096, m = 101; the layout's edge sides; zero, diagonal, repeated and
+    rank-1 spectra), its time beside the plain path's (hermitian_eigh,
+    complex128 cuSOLVER) at B = 4096, the eigh GLayer on the kernel against
+    the complex128 route (forward and gradient), and upstream's published
+    net (runs/admmnet10: 10 layers, eigh GLayers, the attention head) on
+    the card against the CPU.  Returns the kernel's entry of the
+    ``kernels`` line; its ``launches`` are those of one forward of the
+    published net (num_layers - 1), not of the checks and timings."""
+    from admmnet_tpu_torch.core.config import ModelConfig
+    from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.kernels import eigh as ke
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.models.layers import GLayer
+    from admmnet_tpu_torch.ops.projections import hermitian_eigh
+    from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
+
+    _build.lib()
+    for ln in _build.build_logs.get("eigh_jacobi.cu", "").splitlines():
+        if "registers" in ln or "spill" in ln or "smem" in ln:
+            log(f"[28 eigh] ptxas eigh_jacobi.cu: {ln.strip()}")
+    rng = np.random.default_rng(28)
+
+    worst = []
+
+    def held(name, M, w, V, sweeps):
+        rec, orth, werr = (float(x.max()) for x in eigh_errors(M, w, V))
+        worst.append(werr)
+        asc = bool((w[..., 1:] >= w[..., :-1]).all())
+        log(f"[28 eigh] {name}: reconstruction {rec:.3e} (tol {EIGH_REC_TOL:g}), "
+            f"orthogonality {orth:.3e} (tol {EIGH_ORTH_TOL:g}), eigenvalues {werr:.3e} "
+            f"(tol {EIGH_W_TOL:g}), ascending {asc}, sweeps max {int(sweeps.max())} "
+            f"(of {ke.MAX_SWEEPS})")
+        check(rec <= EIGH_REC_TOL and orth <= EIGH_ORTH_TOL and werr <= EIGH_W_TOL and asc
+              and int(sweeps.max()) < ke.MAX_SWEEPS, f"eigh kernel: {name} out of tolerance")
+
+    for B in B_EIGH:
+        M = random_hermitian(rng, B, 101, dev)
+        held(f"random B={B} m=101", M, *ke.eigh_kernel(M, sweeps=True))
+    for m in EIGH_SIDES:
+        M = random_hermitian(rng, 7, m, dev)
+        held(f"random B=7 m={m}", M, *ke.eigh_kernel(M, sweeps=True))
+        for name, E in eigh_edge_batch(m, dev).items():
+            held(f"{name} m={m}", E, *ke.eigh_kernel(E, sweeps=True))
+    M = random_hermitian(rng, 3, 101, dev)
+    M = M + 1j * torch.randn(3, 101, 101, device=dev).to(M.dtype)  # not Hermitian
+    w, V = ke.eigh_kernel(M.contiguous())
+    held("non-Hermitian input (hermitianized)", M, w, V, torch.zeros(1))
+
+    worst_w = max(worst)
+    # the eigh GLayer of runs/admmnet10 on its own lifted matrices
+    state, _ = restore_checkpoint(NET10)
+    cfg = options_from_jax(json.loads((NET10 / "config.json").read_text())["model"])
+    params = params_from_jax(state["params"]["params"], cfg)
+    scenes = np.load(RANDOM_SCENES)
+    y, b, s = (torch.from_numpy(np.asarray(scenes[k])) for k in ("y", "b", "sigma"))
+    net_cpu = ADMMNet(cfg).eval()
+    net_cpu.load_state_dict(params)
+    net_dev = ADMMNet(cfg).to(dev).eval()
+    net_dev.load_state_dict(params)
+    n = cfg.spec.n
+    gl = GLayer(n, value_hidden=cfg.value_net_hidden, mode="eigh")
+    gl.load_state_dict({k[len("trunk.g_0."):]: v for k, v in params.items()
+                        if k.startswith("trunk.g_0.")})
+    B = 256
+    phi = (torch.randn(B, n, dtype=torch.complex64) * 0.3)
+    h = torch.rand(B, n) * 0.05
+    Z = torch.from_numpy(np.asarray(random_hermitian(rng, B, n + 1, "cpu"))) * 0.05
+    probe = torch.randn(B, n + 1, n + 1, dtype=torch.complex64)
+
+    def glayer_run(layer, device):
+        args = [t.to(device).clone().requires_grad_() for t in (phi, h, Z)]
+        layer = layer.to(device)
+        layer.zero_grad()
+        G = layer(*args)
+        (G * probe.to(device)).real.sum().backward()
+        grads = [a.grad.cpu() for a in args] + [p.grad.cpu() for p in layer.parameters()
+                                                if p.grad is not None]
+        return G.detach().cpu(), grads
+
+    G_k, gr_k = glayer_run(gl, dev)
+    G_p, gr_p = glayer_run(gl, "cpu")
+    fwd = float(rel_err(G_k, G_p).max())
+    bwd = max(float(torch.linalg.norm((a - b).reshape(-1)) / torch.linalg.norm(b.reshape(-1)))
+              for a, b in zip(gr_k, gr_p) if float(torch.linalg.norm(b)) > 0)
+    log(f"[28 eigh] GLayer g_0 of runs/admmnet10, B={B}: kernel vs complex128 route forward "
+        f"{fwd:.3e} (tol {EIGH_GLAYER_TOL:g}), gradients (inputs and parameters) worst "
+        f"{bwd:.3e} (tol {EIGH_GLAYER_GRAD_TOL:g})")
+    check(fwd <= EIGH_GLAYER_TOL and bwd <= EIGH_GLAYER_GRAD_TOL,
+          "eigh GLayer: the kernel route is off the complex128 route")
+
+    # the published net on the card against the CPU (complex128 eigh there);
+    # the main path's own launches: the counter runs over this forward alone
+    with torch.no_grad():
+        ke.launches.reset()
+        out_d = [t.cpu() for t in net_dev(y.to(dev), b.to(dev), s.to(dev))]
+        per_fwd = ke.launches.count
+        out_c = net_cpu(y, b, s)
+    phi_gap = float(rel_err(out_d[3], out_c[3]).max())
+    head_gap = max(float((a - c).abs().max()) for a, c in zip(out_d[:3], out_c[:3]))
+    log(f"[28 eigh] runs/admmnet10 on the {y.shape[0]} random scenes, card vs CPU: phi "
+        f"{phi_gap:.3e} (tol {NET10_PHI_TOL:g}), head (tau, f, conf) {head_gap:.3e} (tol "
+        f"{NET10_HEAD_TOL:g}); {per_fwd} eigh launches a forward (expect "
+        f"{cfg.num_layers - 1})")
+    check(phi_gap <= NET10_PHI_TOL and head_gap <= NET10_HEAD_TOL
+          and per_fwd == cfg.num_layers - 1, "runs/admmnet10 on the card is off the CPU")
+
+    # time: the kernel and the plain path at B = 4096, m = 101
+    M = random_hermitian(rng, 4096, 101, dev)
+    kernel = call_ms(lambda: ke.eigh_kernel(M)[0], EIGH_REPS)
+    prof = device_profile(lambda: ke.eigh_kernel(M)[0])
+    dev_ms = (sum(t for name, t in prof[2] if "eigh_jacobi" in name) / 1e3
+              if prof is not None else float("nan"))
+    t0 = time.perf_counter()
+    w_p, _ = hermitian_eigh(M)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    sweeps = ke.eigh_kernel(M, sweeps=True)[2].float()
+    from gpubench.flops.learned_eigh_deploy import eigh_bytes, eigh_flops
+
+    # the benchmark's fixed count (36 m^3 a matrix) at the fp32 SIMT peak
+    bound_ms, by = bound(eigh_flops(4096, 101), eigh_bytes(4096, 101))
+    log(f"[28 eigh] time B=4096 m=101: kernel median {np.median(kernel):.3f} ms a call "
+        f"(device {dev_ms:.3f} ms; calls {' '.join(f'{t:.3f}' for t in kernel)}), plain "
+        f"path (hermitian_eigh, complex128 cuSOLVER) {plain_ms:.1f} ms, "
+        f"{plain_ms / np.median(kernel):.1f}x; "
+        f"sweeps mean {float(sweeps.mean()):.2f} max {int(sweeps.max())}; bound {bound_ms:.4f} "
+        f"ms ({by}, {bound_ms / dev_ms:.2%} of it) {tag}")
+    # the judge's options for the benchmark's reference: complex128 eigh on
+    # the card and on the host's LAPACK
+    Ms = M[:256].to(torch.complex128)
+    t0 = time.perf_counter()
+    torch.linalg.eigh(Ms)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0) / 256
+    Mh = Ms.cpu()
+    t0 = time.perf_counter()
+    torch.linalg.eigh(Mh)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 256
+    log(f"[28 eigh] complex128 torch.linalg.eigh at m=101: {card_ms:.3f} ms a matrix on the "
+        f"card, {host_ms:.3f} ms on the host ({torch.get_num_threads()} threads)")
+    net_ms = {}
+    for Bn in (4096,):
+        from gpubench.traffic import scenes as draw  # the benchmark's own draws
+
+        g = torch.Generator(device=dev).manual_seed(5)
+        data = {"tau_range": [0.1, 0.9], "f_range": [-0.4, 0.4], "gain_std": 0.7,
+                "snr_demod": 7.0, "psk_order": 4, "snr_db": [5.0, 25.0]}
+        sc = draw(data, {"Nb": 10, "Nd": 10, "L_max": 3}, Bn, g, dev)
+        with torch.no_grad():
+            net_ms[Bn] = call_ms(lambda: net_dev(sc["y"], sc["b"], sc["sigma"])[3], 3)
+            prof = device_profile(lambda: net_dev(sc["y"], sc["b"], sc["sigma"])[3])
+        if prof is not None:
+            top = ", ".join(f"{k[:40]} {t / 1e3:.2f}" for k, t in prof[2][:6])
+            log(f"[28 eigh] runs/admmnet10 forward B={Bn}: device {prof[0] / 1e3:.1f} ms of "
+                f"{prof[1] / 1e3:.1f}; top {top}")
+        log(f"[28 eigh] runs/admmnet10 forward B={Bn}: "
+            f"{' '.join(f'{t:.1f}' for t in net_ms[Bn])} "
+            f"ms a call, {Bn / np.median(net_ms[Bn]) * 1e3:.0f} scenes/s {tag}")
+    return {"launches": per_fwd, "max_abs_err": worst_w, "ms": float(np.median(kernel)),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": plain_ms}
+
+
+def eigh_only() -> int:
+    """``--eigh``: phase 28 alone."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the eigh kernel's checks need one GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eigh_checks(torch.device("cuda", 0), f"[{card()}]")
     return 0
 
 
@@ -3225,10 +3471,13 @@ if __name__ == "__main__":
                       help="run the parallel phase alone (phase 26, see parallel_only)")
     mode.add_argument("--phi-route", action="store_true",
                       help="run the phi-regression route alone (phase 27, see phi_route_only)")
+    mode.add_argument("--eigh", action="store_true",
+                      help="run the eigh kernel's phase alone (phase 28, see eigh_checks)")
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
              else time_polar() if args.time_polar else time_deploy() if args.time_deploy
              else time_peaks() if args.time_peaks
              else codegen() if args.codegen
              else profile_k2() if args.profile_k2 else parallel_only() if args.parallel
-             else phi_route_only() if args.phi_route else main())
+             else phi_route_only() if args.phi_route
+             else eigh_only() if args.eigh else main())

@@ -723,3 +723,81 @@ def test_nccl_world_one_trainer_equals_no_mesh(cuda, tmp_path):
     assert losses == ref.history["train_loss"]
     for k, v in ref.params.items():
         np.testing.assert_array_equal(params[k], v.numpy())
+
+
+# ---- the batched Jacobi eigensolver ----------------------------------------------
+# Held to torch.linalg.eigh in complex128 by chip_smoke's tolerances
+# (EIGH_REC_TOL, EIGH_ORTH_TOL, EIGH_W_TOL and their reasons): the
+# reconstruction ||V diag(w) V^H - herm(M)||_F / ||M||_F, max |V^H V - I|
+# and the eigenvalues against max |w_ref|.
+
+
+def _eigh_held(M, w, V, sweeps):
+    from admmnet_tpu_torch.kernels import eigh as ke
+
+    rec, orth, werr = (float(x.max()) for x in chip_smoke.eigh_errors(M, w, V))
+    assert rec <= chip_smoke.EIGH_REC_TOL
+    assert orth <= chip_smoke.EIGH_ORTH_TOL
+    assert werr <= chip_smoke.EIGH_W_TOL
+    assert bool((w[..., 1:] >= w[..., :-1]).all())
+    assert int(sweeps.max()) < ke.MAX_SWEEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, m", [(1, 101), (7, 101), (4096, 101), (7, 2), (7, 3), (7, 16),
+                                  (7, 100), (7, 120)])
+def test_eigh_kernel_random(cuda, B, m):
+    from admmnet_tpu_torch.kernels import eigh as ke
+
+    M = chip_smoke.random_hermitian(np.random.default_rng(B * 1000 + m), B, m, cuda)
+    _eigh_held(M, *ke.eigh_kernel(M, sweeps=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero", "diagonal", "repeated", "rank-1"])
+@pytest.mark.parametrize("m", [3, 16, 101, 120])
+def test_eigh_kernel_edge_spectra(cuda, case, m):
+    from admmnet_tpu_torch.kernels import eigh as ke
+
+    M = chip_smoke.eigh_edge_batch(m, cuda)[case]
+    w, V, sweeps = ke.eigh_kernel(M, sweeps=True)
+    _eigh_held(M, w, V, sweeps)
+    if case in ("zero", "diagonal"):
+        assert int(sweeps.max()) == 0
+
+
+@pytest.mark.cuda
+def test_eigh_glayer_kernel_route_matches_complex128(cuda):
+    """The eigh GLayer on the card (the kernel, gradient through the
+    eigenvalues) against the same layer on the CPU (complex128 eigh):
+    forward and the gradients of a random functional of G with respect to
+    phi, h, Z and the parameters (chip_smoke's EIGH_GLAYER_*_TOL)."""
+    from admmnet_tpu_torch.kernels import eigh as ke
+    from admmnet_tpu_torch.models.layers import GLayer
+
+    torch.manual_seed(3)
+    n, B = 100, 64
+    layer = GLayer(n, mode="eigh")
+    phi = torch.randn(B, n, dtype=torch.complex64) * 0.3
+    h = torch.rand(B, n) * 0.05
+    Z = torch.from_numpy(np.asarray(chip_smoke.random_hermitian(
+        np.random.default_rng(4), B, n + 1, "cpu"))) * 0.05
+    probe = torch.randn(B, n + 1, n + 1, dtype=torch.complex64)
+
+    def run(device):
+        args = [t.to(device).clone().requires_grad_() for t in (phi, h, Z)]
+        lay = layer.to(device)
+        lay.zero_grad()
+        G = lay(*args)
+        (G * probe.to(device)).real.sum().backward()
+        return G.detach().cpu(), [a.grad.cpu() for a in args] + [
+            p.grad.cpu() for p in lay.parameters() if p.grad is not None]
+
+    before = ke.launches.count
+    G_k, g_k = run(cuda)
+    assert ke.launches.count == before + 1
+    G_p, g_p = run("cpu")
+    assert float(chip_smoke.rel_err(G_k, G_p).max()) <= chip_smoke.EIGH_GLAYER_TOL
+    for a, b in zip(g_k, g_p):
+        gap = float(torch.linalg.norm((a - b).reshape(-1)) / torch.linalg.norm(b.reshape(-1)))
+        assert gap <= chip_smoke.EIGH_GLAYER_GRAD_TOL
