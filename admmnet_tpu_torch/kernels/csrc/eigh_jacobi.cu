@@ -11,8 +11,10 @@
 // Per matrix (side m, padded to an even mp with a zero row and column when
 // m is odd, so that every index has a partner in every round):
 //
-//   1. load A = herm(M) = (M + M^H) / 2 and V = I into shared memory, and
-//      the Frobenius norm ||A||_F (invariant under the rotations);
+//   1. load herm(M) = (M + M^H) / 2 into the upper triangle and the
+//      diagonal of A (the entry (i, j), i > j, is read as conj of (j, i):
+//      A is Hermitian by construction), V^T = I into shared memory, and the
+//      Frobenius norm ||A||_F (invariant under the rotations);
 //   2. sweeps of mp - 1 rounds; round r pairs index r with mp - 1 and
 //      (r + k) mod (mp - 1) with (r - k) mod (mp - 1), k = 1 .. mp/2 - 1,
 //      so that every pair meets once a sweep and the mp/2 pairs of a round
@@ -20,11 +22,13 @@
 //      zeroes its a_pq, J = [[c, z], [-conj(z), c]] with t = sign(tau) /
 //      (|tau| + sqrt(1 + tau^2)), tau = (a_qq - a_pp) / (2 |a_pq|), c = 1 /
 //      sqrt(1 + t^2), z = t c a_pq / |a_pq| (the smaller angle), or none
-//      where |a_pq| <= tol = 2^-24 ||A||_F / m.  Phase 2: A <- J^H A J as
-//      independent 2 x 2 blocks (rows of pair P, columns of pair Q), each
-//      read and written by one thread, and V <- V J; a rotated pair's own
-//      block is set to diag(a_pp - t |a_pq|, a_qq + t |a_pq|) exactly.  A
-//      round with no rotation skips phase 2;
+//      where |a_pq| <= tol = 2^-24 ||A||_F / m, and sets a rotated pair's
+//      own block to diag(a_pp - t |a_pq|, a_qq + t |a_pq|) exactly.  Phase
+//      2: A <- J^H A J over the other blocks (rows of pair P, columns of
+//      pair Q), each unordered pair {P, Q} once: X = J_P^H A_PQ J_Q, whose
+//      entries below the diagonal are stored conjugated in their mirror
+//      places (the block (Q, P) = X^H); and V <- V J, as rows p and q of
+//      V^T.  A round with no rotation skips phase 2;
 //   3. stop after the first sweep that rotates nothing (every |a_pq| <=
 //      tol, so the off-diagonal part is below 2^-24 ||A||_F), or after
 //      max_sweeps; the number of sweeps that rotated is written per matrix;
@@ -35,20 +39,32 @@
 // need different numbers of sweeps (a near-diagonal one 1-2, a random one
 // 7-8), and a block that stops frees its SM for the next matrix.
 //
-// What bounds it on the card: shared-memory traffic and the SIMT
-// instructions around it (fp32 work, addresses, the rotations' loads).  A
-// rotating round reads and writes all of A and V once (mp^2 + m mp complex
-// values, ~330 KB at m = 101), so a sweep is ~33 MB of shared-memory
-// traffic a matrix; the two barriers of a round and the serial latency of
-// phase 1 (a division chain in 51 threads) are the rest.  A and V (166 KB
-// at m = 101) take most of an SM's shared memory, so one block runs on an
-// SM; its 1024 threads hide the shared-memory latency.  Device-memory
-// traffic is M in and w, V out, once.  In phase 2 each thread keeps one
-// column pair Q for the round (its rotation and indices loaded once) and
-// takes the row pairs P = g, g + G, ... of A and the rows g, g + G, ... of
-// V; consecutive threads hold consecutive pairs, whose columns (r + k) and
-// (r - k) are consecutive addresses, so the gathers do not conflict in the
-// banks.
+// What bounds it on the card: the SIMT instructions of phase 2 (fp32
+// work, addresses, the rotations' loads) and their shared-memory traffic,
+// then phase 1.  A rotating round reads and writes the upper triangle of A
+// and all of V^T once (~mp^2 / 2 + mp^2 complex values, ~250 KB at m =
+// 101), so a sweep is ~25 MB of shared-memory traffic a matrix; the two
+// barriers of a round and the serial latency of phase 1 (a division chain
+// in mp / 2 threads) are the rest: on an H100 at m = 101, ~0.6 us of a
+// ~2.4 us round.  A and V (167 KB at m = 101) take most of an SM's shared
+// memory, so one block runs on an SM; its 1024 threads hide the
+// shared-memory latency.  Device-memory traffic is M in and w, V out, once.
+//
+// Phase 2's deal.  Its units are the np (np - 1) / 2 block pairs of A (np =
+// mp / 2; P < Q, in row order) and the np^2 updates of V (pair Q and row
+// pair i: entries 2i and 2i + 1 of V^T's rows p and q, one 16-byte access
+// each; i fastest), each 32 consecutive units one step of a warp.  Warp w
+// takes an even share of A's steps, then as many of V's as bring its cost
+// to the running share of the total, a step of A costing COST_A steps of V:
+// every thread works, and the warps finish together.  At m = 101 that is 40
+// steps of A and 82 of V over 32 warps: a warp takes two of A, or one of A
+// and three or four of V.  The banks: a step of V reads 32 consecutive
+// entries of V^T's rows, its rotation broadcast; a step of A reads the rows
+// of one or two pairs P and the columns of consecutive pairs Q, and A's
+// row stride mp + 1 is odd, so the entries that land below the diagonal (a
+// walk down a column) spread over the banks too.  The rotation of a pair is
+// one 16-byte record: c, z and, in its fourth word, the pair's indices and
+// whether it rotates.
 
 #include <cmath>
 #include <cstdint>
@@ -61,17 +77,20 @@ namespace eigh {
 constexpr int NT = 1024;  // threads a block
 constexpr int NW = NT / 32;
 constexpr float TOL_REL = 5.9604644775390625e-08f;  // 2^-24
+// A step of A's cost in phase 2's deal, in steps of V.  Its 8 rotation steps
+// a unit against V's 4 say 2, but its loads wait on the rotations' and its
+// entries need the triangle's addresses: timed on an H100 at m = 101 with
+// weights 1 to 8, 3 was the fastest (weight 2 took 6% longer, 4 1%, 8 11%)
+constexpr int COST_A = 3;
 
 // Byte offsets of the block's shared memory; kernels/eigh.py's smem_bytes
 // mirrors total, and the launcher refuses a launch where they differ.
 struct Layout {
-  int A;     // float2 [mp][mp]
-  int V;     // float2 [m][mp]
-  int rot;   // float4 [mp / 2]: c, Re z, Im z, t |a_pq|
-  int pair;  // int2 [mp / 2]: the round's pairs (p, q); after the sweeps, int [mp]:
-             // the index of the j-th smallest eigenvalue
-  int act;   // int [mp / 2]: the pair rotates this round
-  int red;   // float [NW]: the norm's partial sums
+  int A;    // float2 [mp][mp + 1]: the upper triangle and the diagonal
+  int V;    // float2 [mp][mp]: V^T, row j the j-th column of V (entry m: padding)
+  int rot;  // float4 [mp / 2]: c, Re z, Im z, bits p | q << 8 | rotates << 16;
+            // after the sweeps, int [m]: the index of the j-th smallest eigenvalue
+  int red;  // float [NW]: the norm's partial sums
   int total;
 };
 
@@ -79,11 +98,9 @@ __host__ __device__ inline Layout layout(int m) {
   const int mp = m + (m & 1), np = mp / 2;
   Layout L;
   L.A = 0;
-  L.V = L.A + 8 * mp * mp;
-  L.rot = L.V + 8 * m * mp;
-  L.pair = L.rot + 16 * np;  // int2 wants 8-byte alignment: rot's is 16
-  L.act = L.pair + 8 * np;
-  L.red = L.act + 4 * np;
+  L.V = L.A + 8 * mp * (mp + 1);
+  L.rot = L.V + 8 * mp * mp;  // float4 wants 16-byte alignment: mp is even
+  L.red = L.rot + 16 * np;
   L.total = L.red + 4 * NW;
   return L;
 }
@@ -101,11 +118,18 @@ __device__ __forceinline__ void pair_of(int r, int k, int n1, int& p, int& q) {
   }
 }
 
+// Where A's entry (i, j), i != j, is kept: (i, j) above the diagonal, else
+// its conjugate at (j, i).
+__device__ __forceinline__ int upper(int i, int j, int S) { return i < j ? i * S + j : j * S + i; }
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-__device__ __forceinline__ float2 conjf2(float2 a) { return make_float2(a.x, -a.y); }
+// conj(x) where flip, else x
+__device__ __forceinline__ float2 conj_if(bool flip, float2 x) {
+  return make_float2(x.x, flip ? -x.y : x.y);
+}
 
 // c x - z y, with c real
 __device__ __forceinline__ float2 rot_sub(float c, float2 x, float2 z, float2 y) {
@@ -125,41 +149,38 @@ __global__ void __launch_bounds__(NT, 1)
                        int max_sweeps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(m);
-  const int mp = m + (m & 1), np = mp / 2, n1 = mp - 1;
+  const int mp = m + (m & 1), np = mp / 2, n1 = mp - 1, S = mp + 1;
   float2* A = reinterpret_cast<float2*>(smem + L.A);
   float2* V = reinterpret_cast<float2*>(smem + L.V);
   float4* rot = reinterpret_cast<float4*>(smem + L.rot);
-  int* act = reinterpret_cast<int*>(smem + L.act);
-  int2* pair = reinterpret_cast<int2*>(smem + L.pair);
-  int* perm = reinterpret_cast<int*>(smem + L.pair);
+  int* perm = reinterpret_cast<int*>(smem + L.rot);
   float* red = reinterpret_cast<float*>(smem + L.red);
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const float2* Mb = M + b * m * m;
 
-  // 1. A = M (the padding zero), V = I
+  // 1. A = M (the padding zero), V^T = I
   for (int e = tid; e < mp * mp; e += NT) {
     const int i = e / mp, j = e - i * mp;
-    A[e] = (i < m && j < m) ? Mb[i * m + j] : make_float2(0.f, 0.f);
+    A[i * S + j] = (i < m && j < m) ? Mb[i * m + j] : make_float2(0.f, 0.f);
   }
-  for (int e = tid; e < m * mp; e += NT) {
+  for (int e = tid; e < mp * mp; e += NT) {
     const int i = e / mp, j = e - i * mp;
     V[e] = make_float2(i == j ? 1.f : 0.f, 0.f);
   }
   __syncthreads();
-  // A = herm(A): the thread of (i, j), i < j, writes both; ||A||_F^2
+  // A = herm(A) above the diagonal and on it; ||A||_F^2
   float part = 0.f;
   for (int e = tid; e < m * m; e += NT) {
     const int i = e / m, j = e - i * m;
     if (i < j) {
-      const float2 x = A[i * mp + j], y = A[j * mp + i];
+      const float2 x = A[i * S + j], y = A[j * S + i];
       const float2 h = make_float2(0.5f * (x.x + y.x), 0.5f * (x.y - y.y));
-      A[i * mp + j] = h;
-      A[j * mp + i] = conjf2(h);
+      A[i * S + j] = h;
       part += 2.f * (h.x * h.x + h.y * h.y);
     } else if (i == j) {
-      const float d = A[i * mp + i].x;
-      A[i * mp + i] = make_float2(d, 0.f);
+      const float d = A[i * S + i].x;
+      A[i * S + i] = make_float2(d, 0.f);
       part += d * d;
     }
   }
@@ -170,10 +191,28 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < NW; ++i) norm2 += red[i];
   const float tol = TOL_REL * sqrtf(norm2) / static_cast<float>(m);
 
-  // phase 2's work of this thread: pair Q of the columns (and of V's
-  // columns), the groups of rows P = g, g + G, ... (and V's rows i = g,
-  // g + G, ...); threads past G np have none
-  const int G = NT / np, Q = tid % np, g = tid / np;
+  // phase 2's deal (the note above): this warp's steps [a0, a1) of A and
+  // [v0, v1) of V, and this lane's first units: A's block pair (P0, Q0) of
+  // unit 32 a0 + lane, V's (pair Q, row pair i) (vQ0, vi0) of unit 32 v0 +
+  // lane; a unit past the last reads Q >= np
+  const int lane = tid & 31, wid = tid >> 5;
+  const int nA = (np * (np - 1) / 2 + 31) / 32, nV = (np * np + 31) / 32;
+  const int cost = COST_A * nA + nV;
+  const int a0 = wid * nA / NW, a1 = (wid + 1) * nA / NW;
+  int v0 = 0, v1 = 0;
+  // got: V's steps before warp k, never fewer than before warp k - 1
+  for (int k = 1, got = 0; k <= wid + 1; ++k) {
+    got = max(got, min(nV, (k * cost - COST_A * NW * (k * nA / NW)) / NW));
+    if (k == wid) v0 = got;
+    v1 = got;
+  }
+  int P0 = 0, Q0 = 32 * a0 + lane;
+  while (P0 < np && Q0 >= np - 1 - P0) {  // row P holds the np - 1 - P units (P, P + 1 ..)
+    Q0 -= np - 1 - P0;
+    ++P0;
+  }
+  Q0 += P0 + 1;
+  const int vQ0 = (32 * v0 + lane) / np, vi0 = 32 * v0 + lane - vQ0 * np;
 
   // 2. sweeps
   int sweeps = 0;
@@ -184,8 +223,8 @@ __global__ void __launch_bounds__(NT, 1)
       if (tid < np) {
         int p, q;
         pair_of(r, tid, n1, p, q);
-        const float a = A[p * mp + p].x, d = A[q * mp + q].x;
-        const float2 h = A[p * mp + q];
+        const float a = A[p * S + p].x, d = A[q * S + q].x;
+        const float2 h = conj_if(p > q, A[upper(p, q, S)]);
         const float ah = hypotf(h.x, h.y);
         float4 R = make_float4(1.f, 0.f, 0.f, 0.f);
         if (ah > tol) {
@@ -193,65 +232,81 @@ __global__ void __launch_bounds__(NT, 1)
           const float t = copysignf(1.f, tau) / (fabsf(tau) + sqrtf(fmaf(tau, tau, 1.f)));
           const float c = 1.f / sqrtf(fmaf(t, t, 1.f));
           const float s = t * c;
-          R = make_float4(c, s * (h.x / ah), s * (h.y / ah), t * ah);
+          R = make_float4(c, s * (h.x / ah), s * (h.y / ah), 0.f);
+          // the pair's own block, diagonalised exactly
+          const float tb = t * ah;
+          A[p * S + p] = make_float2(a - tb, 0.f);
+          A[q * S + q] = make_float2(d + tb, 0.f);
+          A[upper(p, q, S)] = make_float2(0.f, 0.f);
           on = 1;
         }
+        R.w = __int_as_float(p | q << 8 | on << 16);
         rot[tid] = R;
-        act[tid] = on;
-        pair[tid] = make_int2(p, q);
       }
       if (!__syncthreads_or(on)) continue;  // the same answer in every thread
       rotated = 1;
-      if (g < G) {
-        const int aQ = act[Q];
-        const int2 cQ = pair[Q];
-        const float4 RQ = rot[Q];
-        const float2 zQ = make_float2(RQ.y, RQ.z), zQc = make_float2(RQ.y, -RQ.z);
-        // A <- J^H A J, block (P, Q): rows of pair P, columns of pair Q
-        for (int P = g; P < np; P += G) {
-          const int aP = act[P];
-          if (!(aP | aQ)) continue;
-          const int2 rP = pair[P];
-          float2* r0 = A + rP.x * mp;
-          float2* r1 = A + rP.y * mp;
-          float2 x00 = r0[cQ.x], x01 = r0[cQ.y], x10 = r1[cQ.x], x11 = r1[cQ.y];
-          if (P == Q) {  // the pair's own block, diagonalised exactly
-            const float tb = RQ.w;
-            x00 = make_float2(x00.x - tb, 0.f);
-            x11 = make_float2(x11.x + tb, 0.f);
-            x01 = x10 = make_float2(0.f, 0.f);
-          } else {
-            if (aP) {  // rows: p <- c p - z q, q <- conj(z) p + c q
-              const float4 R = rot[P];
-              const float2 z = make_float2(R.y, R.z), zc = make_float2(R.y, -R.z);
-              const float2 y00 = rot_sub(R.x, x00, z, x10), y01 = rot_sub(R.x, x01, z, x11);
-              x10 = rot_add(zc, x00, R.x, x10);
-              x11 = rot_add(zc, x01, R.x, x11);
+      // A <- J^H A J, block (P, Q): rows of pair P, columns of pair Q
+      for (int k = a0, P = P0, Q = Q0; k < a1; ++k) {
+        if (Q < np) {
+          const float4 RP = rot[P], RQ = rot[Q];
+          const int bP = __float_as_int(RP.w), bQ = __float_as_int(RQ.w);
+          if ((bP | bQ) >> 16) {
+            const int i0 = bP & 255, i1 = (bP >> 8) & 255, j0 = bQ & 255, j1 = (bQ >> 8) & 255;
+            const int e00 = upper(i0, j0, S), e01 = upper(i0, j1, S);
+            const int e10 = upper(i1, j0, S), e11 = upper(i1, j1, S);
+            float2 x00 = conj_if(i0 > j0, A[e00]), x01 = conj_if(i0 > j1, A[e01]);
+            float2 x10 = conj_if(i1 > j0, A[e10]), x11 = conj_if(i1 > j1, A[e11]);
+            if (bP >> 16) {  // rows: p <- c p - z q, q <- conj(z) p + c q
+              const float2 z = make_float2(RP.y, RP.z), zc = make_float2(RP.y, -RP.z);
+              const float2 y00 = rot_sub(RP.x, x00, z, x10), y01 = rot_sub(RP.x, x01, z, x11);
+              x10 = rot_add(zc, x00, RP.x, x10);
+              x11 = rot_add(zc, x01, RP.x, x11);
               x00 = y00;
               x01 = y01;
             }
-            if (aQ) {  // columns: p <- c p - conj(z) q, q <- z p + c q
-              const float2 y00 = rot_sub(RQ.x, x00, zQc, x01);
-              const float2 y10 = rot_sub(RQ.x, x10, zQc, x11);
-              x01 = rot_add(zQ, x00, RQ.x, x01);
-              x11 = rot_add(zQ, x10, RQ.x, x11);
+            if (bQ >> 16) {  // columns: p <- c p - conj(z) q, q <- z p + c q
+              const float2 z = make_float2(RQ.y, RQ.z), zc = make_float2(RQ.y, -RQ.z);
+              const float2 y00 = rot_sub(RQ.x, x00, zc, x01);
+              const float2 y10 = rot_sub(RQ.x, x10, zc, x11);
+              x01 = rot_add(z, x00, RQ.x, x01);
+              x11 = rot_add(z, x10, RQ.x, x11);
               x00 = y00;
               x10 = y10;
             }
+            A[e00] = conj_if(i0 > j0, x00);
+            A[e01] = conj_if(i0 > j1, x01);
+            A[e10] = conj_if(i1 > j0, x10);
+            A[e11] = conj_if(i1 > j1, x11);
           }
-          r0[cQ.x] = x00;
-          r0[cQ.y] = x01;
-          r1[cQ.x] = x10;
-          r1[cQ.y] = x11;
         }
-        // V <- V J, rows i, columns of pair Q
-        if (aQ) {
-          for (int i = g; i < m; i += G) {
-            float2* v = V + i * mp;
-            const float2 vp = v[cQ.x], vq = v[cQ.y];
-            v[cQ.x] = rot_sub(RQ.x, vp, zQc, vq);
-            v[cQ.y] = rot_add(zQ, vp, RQ.x, vq);
+        Q += 32;  // 32 units on: rows of np - 1 - P units each
+        while (Q >= np && P < np) {
+          ++P;
+          Q += P + 1 - np;
+        }
+      }
+      // V <- V J: rows p and q of V^T, entries 2 i and 2 i + 1
+      for (int k = v0, Q = vQ0, i = vi0; k < v1; ++k) {
+        if (Q < np) {
+          const float4 R = rot[Q];
+          const int bits = __float_as_int(R.w);
+          if (bits >> 16) {
+            float4* vp = reinterpret_cast<float4*>(V + (bits & 255) * mp) + i;
+            float4* vq = reinterpret_cast<float4*>(V + ((bits >> 8) & 255) * mp) + i;
+            const float4 x = *vp, y = *vq;
+            const float2 z = make_float2(R.y, R.z), zc = make_float2(R.y, -R.z);
+            const float2 x0 = make_float2(x.x, x.y), x1 = make_float2(x.z, x.w);
+            const float2 y0 = make_float2(y.x, y.y), y1 = make_float2(y.z, y.w);
+            const float2 p0 = rot_sub(R.x, x0, zc, y0), p1 = rot_sub(R.x, x1, zc, y1);
+            const float2 q0 = rot_add(z, x0, R.x, y0), q1 = rot_add(z, x1, R.x, y1);
+            *vp = make_float4(p0.x, p0.y, p1.x, p1.y);
+            *vq = make_float4(q0.x, q0.y, q1.x, q1.y);
           }
+        }
+        i += 32;  // 32 units on: rows of np units each
+        while (i >= np) {
+          i -= np;
+          ++Q;
         }
       }
       __syncthreads();
@@ -262,22 +317,22 @@ __global__ void __launch_bounds__(NT, 1)
 
   // 3. ascending order, ties by index; NaN last
   for (int i = tid; i < m; i += NT) {
-    const float wi = A[i * mp + i].x;
+    const float wi = A[i * S + i].x;
     const float ki = wi != wi ? INFINITY : wi;
     int rank = 0;
     for (int j = 0; j < m; ++j) {
-      const float wj = A[j * mp + j].x;
+      const float wj = A[j * S + j].x;
       const float kj = wj != wj ? INFINITY : wj;
       rank += (kj < ki || (kj == ki && j < i)) ? 1 : 0;
     }
     perm[rank] = i;
   }
   __syncthreads();
-  for (int j = tid; j < m; j += NT) w_out[b * m + j] = A[perm[j] * mp + perm[j]].x;
+  for (int j = tid; j < m; j += NT) w_out[b * m + j] = A[perm[j] * S + perm[j]].x;
   float2* Vb = V_out + b * m * m;
   for (int e = tid; e < m * m; e += NT) {
     const int i = e / m, j = e - i * m;
-    Vb[e] = V[i * mp + perm[j]];
+    Vb[e] = V[perm[j] * mp + i];
   }
   if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = sweeps;
 }

@@ -8,7 +8,12 @@ Replaces no TPU kernel: the JAX package's eigh GLayer calls
 one matrix at a time.  ``csrc/eigh_jacobi.cu`` solves each matrix of the
 batch in its own thread block, A and V in shared memory, by the two-sided
 cyclic Jacobi method in round-robin order, in complex64 (the JAX package's
-precision); its note gives the algorithm and what bounds it.
+precision).  A is kept as its upper triangle (an entry below the diagonal
+is the conjugate of its mirror), so each round rotates every unordered
+pair of 2 x 2 blocks once and A stays exactly Hermitian; the round's block
+pairs and V's updates are dealt over all 1024 threads by a rule derived
+from the side alone.  Its note gives the algorithm, the deal and what
+bounds it.
 
 - ``eigh_kernel(M)``: (w, V) of the hermitianized (..., m, m) complex64
   CUDA tensor M, w float32 ascending and V complex64, the contract of
@@ -39,11 +44,11 @@ launches = LaunchCounter("eigh")
 
 def smem_bytes(m: int) -> int:
     """Dynamic shared memory of a block: ``layout(m).total`` of
-    csrc/eigh_jacobi.cu (A and V, the rotations, the round's pairs, which
-    the sort's permutation reuses, the rotations' flags and the norm's
-    partial sums)."""
+    csrc/eigh_jacobi.cu (A at the odd row stride mp + 1, V^T, the round's
+    rotations, which the sort's permutation reuses, and the norm's partial
+    sums)."""
     mp = m + (m & 1)
-    return 8 * mp * mp + 8 * m * mp + (16 + 8 + 4) * (mp // 2) + 4 * (THREADS // 32)
+    return 8 * mp * (mp + 1) + 8 * mp * mp + 16 * (mp // 2) + 4 * (THREADS // 32)
 
 
 MAX_SIDE = max(m for m in range(1, 257) if smem_bytes(m) <= SMEM_LIMIT)  # 120

@@ -82,7 +82,9 @@ and ``--codegen`` only phase 2's registers, spills and HMMA counts
 only phase 25, the subtraction profile of K2 by its ``ablate`` variants
 (``k2_profile``); ``--parallel`` only phase 26 (``parallel_only``);
 ``--phi-route`` only phase 27 (``phi_route_only``); ``--eigh`` only phase 28
-(``eigh_checks``).
+(``eigh_checks``), ``--time-eigh`` only its timing of the eigh kernel
+(``time_eigh``: the kernel at B = 4096 and the split of a round into its
+phases), to pair two trees.
 """
 
 from __future__ import annotations
@@ -3136,27 +3138,15 @@ def eigh_checks(dev, tag: str) -> dict:
     check(phi_gap <= NET10_PHI_TOL and head_gap <= NET10_HEAD_TOL
           and per_fwd == cfg.num_layers - 1, "runs/admmnet10 on the card is off the CPU")
 
-    # time: the kernel and the plain path at B = 4096, m = 101
+    # time: the kernel (with its phase split) and the plain path at B = 4096, m = 101
     M = random_hermitian(rng, 4096, 101, dev)
-    kernel = call_ms(lambda: ke.eigh_kernel(M)[0], EIGH_REPS)
-    prof = device_profile(lambda: ke.eigh_kernel(M)[0])
-    dev_ms = (sum(t for name, t in prof[2] if "eigh_jacobi" in name) / 1e3
-              if prof is not None else float("nan"))
+    timing = eigh_timing(M, tag)
     t0 = time.perf_counter()
     w_p, _ = hermitian_eigh(M)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    sweeps = ke.eigh_kernel(M, sweeps=True)[2].float()
-    from gpubench.flops.learned_eigh_deploy import eigh_bytes, eigh_flops
-
-    # the benchmark's fixed count (36 m^3 a matrix) at the fp32 SIMT peak
-    bound_ms, by = bound(eigh_flops(4096, 101), eigh_bytes(4096, 101))
-    log(f"[28 eigh] time B=4096 m=101: kernel median {np.median(kernel):.3f} ms a call "
-        f"(device {dev_ms:.3f} ms; calls {' '.join(f'{t:.3f}' for t in kernel)}), plain "
-        f"path (hermitian_eigh, complex128 cuSOLVER) {plain_ms:.1f} ms, "
-        f"{plain_ms / np.median(kernel):.1f}x; "
-        f"sweeps mean {float(sweeps.mean()):.2f} max {int(sweeps.max())}; bound {bound_ms:.4f} "
-        f"ms ({by}, {bound_ms / dev_ms:.2%} of it) {tag}")
+    log(f"[28 eigh] time B=4096 m=101: plain path (hermitian_eigh, complex128 cuSOLVER) "
+        f"{plain_ms:.1f} ms, {plain_ms / timing['ms']:.1f}x the kernel {tag}")
     # the judge's options for the benchmark's reference: complex128 eigh on
     # the card and on the host's LAPACK
     Ms = M[:256].to(torch.complex128)
@@ -3188,8 +3178,83 @@ def eigh_checks(dev, tag: str) -> dict:
         log(f"[28 eigh] runs/admmnet10 forward B={Bn}: "
             f"{' '.join(f'{t:.1f}' for t in net_ms[Bn])} "
             f"ms a call, {Bn / np.median(net_ms[Bn]) * 1e3:.0f} scenes/s {tag}")
-    return {"launches": per_fwd, "max_abs_err": worst_w, "ms": float(np.median(kernel)),
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": plain_ms}
+    return {"launches": per_fwd, "max_abs_err": worst_w, "ms": timing["ms"],
+            "plain_ms": plain_ms, "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": plain_ms}
+
+
+def eigh_launch_ms(M, max_sweeps: int) -> float:
+    """Median ms of EIGH_REPS calls of ``eigh_jacobi_launch`` on the CUDA
+    complex64 batch M (B, m, m) with ``max_sweeps``, sweep counts not
+    written."""
+    from admmnet_tpu_torch.kernels import _build
+    from admmnet_tpu_torch.kernels import eigh as ke
+
+    B, m = M.shape[0], M.shape[-1]
+    w = torch.empty((B, m), dtype=torch.float32, device=M.device)
+    V = torch.empty_like(M)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+
+    def launch():
+        _build.check(lib.eigh_jacobi_launch(M.data_ptr(), w.data_ptr(), V.data_ptr(), None, B, m,
+                                            max_sweeps, ke.smem_bytes(m), stream),
+                     "eigh_jacobi_launch")
+
+    return float(np.median(call_ms(launch, EIGH_REPS)))
+
+
+def eigh_timing(M, tag: str) -> dict:
+    """The eigh kernel alone on the random batch M (B = 4096, m = 101): the
+    median of EIGH_REPS calls, its device time under the profiler, the
+    sweep counts, its bound, and the split of a round into its phases, by
+    ``eigh_jacobi_launch`` with ``max_sweeps`` set: 0 (load, hermitize, sort
+    and store), one sweep of a diagonal batch (its rounds run phase 1
+    alone: no pair rotates) and one sweep of M (every round rotates)."""
+    from admmnet_tpu_torch.kernels import eigh as ke
+    from gpubench.flops.learned_eigh_deploy import eigh_bytes, eigh_flops
+
+    B, m = M.shape[0], M.shape[-1]
+    kernel = call_ms(lambda: ke.eigh_kernel(M)[0], EIGH_REPS)
+    prof = device_profile(lambda: ke.eigh_kernel(M)[0])
+    dev_ms = (sum(t for name, t in prof[2] if "eigh_jacobi" in name) / 1e3
+              if prof is not None else float("nan"))
+    sweeps = ke.eigh_kernel(M, sweeps=True)[2].float()
+    # the benchmark's fixed count (36 m^3 a matrix) at the fp32 SIMT peak
+    bound_ms, by = bound(eigh_flops(B, m), eigh_bytes(B, m))
+    log(f"[28 eigh] {ROOT} time B={B} m={m}: kernel median {np.median(kernel):.3f} ms a call "
+        f"(device {dev_ms:.3f} ms; calls {' '.join(f'{t:.3f}' for t in kernel)}); sweeps mean "
+        f"{float(sweeps.mean()):.3f} max {int(sweeps.max())}; bound {bound_ms:.4f} ms ({by}, "
+        f"{bound_ms / dev_ms:.2%} of it) {tag}")
+    diag = torch.diag_embed(torch.randn(B, m, device=M.device)).to(M.dtype)
+    rounds = m + (m & 1) - 1
+    base = eigh_launch_ms(M, 0)
+    phase1 = (eigh_launch_ms(diag, ke.MAX_SWEEPS) - base) / rounds
+    phase2 = (eigh_launch_ms(M, 1) - base) / rounds - phase1
+    sms = torch.cuda.get_device_properties(M.device).multi_processor_count
+    per_sm = 1e3 * sms / B  # us of one block on its SM for each ms of the batch
+    log(f"[28 eigh] {ROOT} phases B={B} m={m}: load, hermitize, sort and store {base:.3f} ms; a "
+        f"round: phase 1 {phase1:.4f} ms, phase 2 {phase2:.4f} ms ({phase1 * per_sm:.3f} and "
+        f"{phase2 * per_sm:.3f} us a matrix on its SM) {tag}")
+    return {"ms": float(np.median(kernel)), "bound_ms": bound_ms, "bound_by": by,
+            "phase1_ms": phase1, "phase2_ms": phase2}
+
+
+def time_eigh() -> int:
+    """``--time-eigh``: the eigh kernel's timing alone (``eigh_timing``,
+    B = 4096, m = 101) and ptxas's report of ``csrc/eigh_jacobi.cu``, to
+    compare two trees on one card as ``--time-k6`` does."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the eigh kernel's timing needs one GPU")
+    from admmnet_tpu_torch.kernels import _build
+
+    _build.lib()
+    for ln in _build.build_logs.get("eigh_jacobi.cu", "").splitlines():
+        if "registers" in ln or "spill" in ln:
+            log(f"[28 eigh] {ROOT} ptxas eigh_jacobi.cu: {ln.strip()}")
+    dev = torch.device("cuda", 0)
+    eigh_timing(random_hermitian(np.random.default_rng(28), 4096, 101, dev), f"[{card()}]")
+    return 0
 
 
 def eigh_only() -> int:
@@ -3473,6 +3538,9 @@ if __name__ == "__main__":
                       help="run the phi-regression route alone (phase 27, see phi_route_only)")
     mode.add_argument("--eigh", action="store_true",
                       help="run the eigh kernel's phase alone (phase 28, see eigh_checks)")
+    mode.add_argument("--time-eigh", action="store_true",
+                      help="time the eigh kernel alone, with its phase split (see time_eigh), "
+                           "and run nothing else")
     args = ap.parse_args()
     sys.exit(time_cheb() if args.time_cheb else time_k6() if args.time_k6
              else time_polar() if args.time_polar else time_deploy() if args.time_deploy
@@ -3480,4 +3548,4 @@ if __name__ == "__main__":
              else codegen() if args.codegen
              else profile_k2() if args.profile_k2 else parallel_only() if args.parallel
              else phi_route_only() if args.phi_route
-             else eigh_only() if args.eigh else main())
+             else eigh_only() if args.eigh else time_eigh() if args.time_eigh else main())

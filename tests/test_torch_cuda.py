@@ -743,9 +743,14 @@ def _eigh_held(M, w, V, sweeps):
     assert int(sweeps.max()) < ke.MAX_SWEEPS
 
 
+# Sides beside the layout's edges whose mp / 2 pairs deal phase 2's units
+# over the 32 warps differently: 1 (one pair, no block pair of A), 33, 64
+# and 65 (fewer steps of A than warps: some warps update V alone), 119 (odd,
+# padded to the largest side).
 @pytest.mark.cuda
 @pytest.mark.parametrize("B, m", [(1, 101), (7, 101), (4096, 101), (7, 2), (7, 3), (7, 16),
-                                  (7, 100), (7, 120)])
+                                  (7, 100), (7, 120), (7, 1), (7, 33), (7, 64), (7, 65),
+                                  (7, 119)])
 def test_eigh_kernel_random(cuda, B, m):
     from admmnet_tpu_torch.kernels import eigh as ke
 
@@ -755,7 +760,7 @@ def test_eigh_kernel_random(cuda, B, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["zero", "diagonal", "repeated", "rank-1"])
-@pytest.mark.parametrize("m", [3, 16, 101, 120])
+@pytest.mark.parametrize("m", [3, 16, 101, 120, 1, 33, 64, 65, 119])
 def test_eigh_kernel_edge_spectra(cuda, case, m):
     from admmnet_tpu_torch.kernels import eigh as ke
 
@@ -764,6 +769,21 @@ def test_eigh_kernel_edge_spectra(cuda, case, m):
     _eigh_held(M, w, V, sweeps)
     if case in ("zero", "diagonal"):
         assert int(sweeps.max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [101, 120])
+def test_eigh_kernel_sweeps_match_plain(cuda, m):
+    """The kernel rotates in as many sweeps as its plain version, matrix by
+    matrix, on a seeded batch of 64: the same pairs, rotations, threshold
+    and stop; a rounding may flip a matrix whose last |a_pq| sits at the
+    threshold, so 62 of the 64 must agree."""
+    from admmnet_tpu_torch.kernels import eigh as ke
+
+    M = chip_smoke.random_hermitian(np.random.default_rng(m), 64, m, cuda)
+    kernel = ke.eigh_kernel(M, sweeps=True)[2].cpu()
+    plain = ke.eigh_jacobi_plain(M.cpu(), sweeps=True)[2]
+    assert int((kernel == plain).sum()) >= 62
 
 
 @pytest.mark.cuda

@@ -103,7 +103,7 @@ def test_round_robin_meets_every_pair_once_a_sweep():
 
 
 def test_layout_and_limits():
-    assert ke.smem_bytes(101) == 167204
+    assert ke.smem_bytes(101) == 168224
     assert ke.MAX_SIDE == 120
     assert ke.smem_bytes(120) <= ke.SMEM_LIMIT < ke.smem_bytes(121)
 
