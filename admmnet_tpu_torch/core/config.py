@@ -72,7 +72,8 @@ class ADMMOptions:
     # polar_fast / fused_fast: 1 appends the POLAR_BF16_POLISH step as a
     # "hi" step (no Hermitian re-projection after it)
     polar_fast_hi_steps: int = 0
-    # JAX-only knob (bf16 iterate storage); the port raises on True
+    # polar_fast: keep the iterate of the low steps in bf16 (K1's bf16_store
+    # instantiation on the card, its emulation on the CPU)
     polar_bf16_store: bool = False
     # fused_fast contract (detection grade; the production point):
     #   fused_kblk: instances interleaved per TPU program.  No effect on
@@ -84,10 +85,13 @@ class ADMMOptions:
     #     "sched3" / "sched2" = shortened refits at a larger eigenvalue
     #     write-off).
     #   fused_final_hi: run the closing |M| products as "hi" products.
-    #   fused_layout: "lean" (the only layout ported) or "lists".
-    #   fused_unroll: loop unroll of the TPU kernel; only 1 is ported.
+    #   fused_layout: "lean" (K2) or "lists" (K3, the escape hatch: needs
+    #     fused_fold_diag and fused_warm_root off, as in JAX).
+    #   fused_unroll: loop unroll of the TPU kernel; no arithmetic, and the
+    #     port ignores it.
     #   fused_fold_diag: carry diag(A) and row n of the |M| product instead
-    #     of the G planes (required by the port).
+    #     of the G planes (K2's production carry; off, K2 runs the unfolded
+    #     carry).
     #   fused_warm_root: carry the bisection bracket across iterations.
     # The 2-step outer depth is certified only jointly with
     # fused_warm_root=True; with a cold bracket use fused_proj_iters >= 3.

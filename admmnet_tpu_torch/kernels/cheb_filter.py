@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import torch
 
+from admmnet_tpu_torch.kernels import _build
 from admmnet_tpu_torch.kernels.polar import bf16_rn, karatsuba, padded_side
 from admmnet_tpu_torch.ops.chebyshev import filter_coefficients, spectral_bound
 from admmnet_tpu_torch.utils import profiling
@@ -206,17 +207,15 @@ def _planes(X: torch.Tensor, P: int):
             torch.nn.functional.pad(X.imag.to(torch.float32), pad).contiguous())
 
 
-def _require_cuda(M: torch.Tensor) -> None:
-    if M.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {M.device}")
-
-
-def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries: bool,
-                    final_hi: bool):
+def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
+                       final_hi: bool = False, carries: bool = False):
+    """Launch K4 on CUDA tensors, or K5 with ``carries``: (Gr, Gi, carries),
+    the zero-padded output planes, each (B, P, P) float32 with B the
+    flattened batch, and K5's final carries (b1r, b1i, b2r, b2i), planes of
+    the same shape (K4: ()).  The Clenshaw steps' products are one-pass
+    bf16, the closing one too unless ``final_hi`` (3xTF32); K5's (Gr, Gi)
+    equal K4's bit for bit at the same ``final_hi``."""
     P = _check(M, coeffs, degree)
-    _require_cuda(M)
-    from admmnet_tpu_torch.kernels import _build
-
     m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
     B = Mf.shape[0]
@@ -225,35 +224,11 @@ def _launch_forward(M: torch.Tensor, coeffs: torch.Tensor, degree: int, carries:
     Gr = torch.empty_like(Mr)
     Gi = torch.empty_like(Mi)
     res = tuple(torch.empty_like(Mr) for _ in range(4)) if carries else ()
-    ptrs = [x.data_ptr() for x in res] if carries else [None] * 4
-    lib = _build.lib()
-    with torch.cuda.device(M.device):
-        err = lib.cheb_filter_launch(
-            Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
-            *ptrs, B, P, m, degree, int(final_hi),
-            torch.cuda.current_stream(M.device).cuda_stream,
-        )
-    _build.check(err, "cheb_filter_launch")
-    (fwd_launches if carries else launches).count += 1
+    b1r, b1i, b2r, b2i = res or (None,) * 4
+    _build.launch("cheb_filter_launch", fwd_launches if carries else launches, Mr=Mr, Mi=Mi,
+                  coeffs=c, Gr=Gr, Gi=Gi, b1r=b1r, b1i=b1i, b2r=b2r, b2i=b2i, B=B, P=P, m=m,
+                  degree=degree, final_hi=int(final_hi))
     return Gr, Gi, res
-
-
-def cheb_filter_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
-                       final_hi: bool = False):
-    """Launch K4 on CUDA tensors; returns its zero-padded output planes
-    (Gr, Gi), each (B, P, P) float32 with B the flattened batch.  The
-    Clenshaw steps' products are one-pass bf16, the closing one too unless
-    ``final_hi`` (3xTF32)."""
-    Gr, Gi, _ = _launch_forward(M, coeffs, degree, carries=False, final_hi=final_hi)
-    return Gr, Gi
-
-
-def cheb_fwd_planes(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
-                    final_hi: bool = False):
-    """Launch K5 on CUDA tensors: (Gr, Gi, carries), the zero-padded output
-    planes and the final carries (b1r, b1i, b2r, b2i), each (B, P, P)
-    float32.  (Gr, Gi) equal K4's bit for bit at the same ``final_hi``."""
-    return _launch_forward(M, coeffs, degree, carries=True, final_hi=final_hi)
 
 
 def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor,
@@ -264,34 +239,23 @@ def cheb_bwd_planes(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Ten
     ``three_pass``: split-bf16 products (the JAX package's default), else
     3xTF32."""
     P = _check(M, coeffs, degree)
-    _require_cuda(M)
     if Y.shape != M.shape or Y.device != M.device:
         raise ValueError(f"cotangent {tuple(Y.shape)} on {Y.device} does not match M")
-    from admmnet_tpu_torch.kernels import _build
-
     m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
     B = Mf.shape[0]
-    for x in carries:
-        if (tuple(x.shape) != (B, P, P) or x.dtype != torch.float32 or x.device != M.device
-                or not x.is_contiguous()):
-            raise ValueError("carries must be K5's contiguous (B, P, P) float32 planes")
+    if any(tuple(x.shape) != (B, P, P) or x.dtype != torch.float32 for x in carries):
+        raise ValueError("carries must be K5's (B, P, P) float32 planes")
     Mr, Mi = _planes(Mf, P)
     Yr, Yi = _planes(Y.reshape(-1, m, m), P)
     c = coeffs.reshape(B, degree).to(torch.float32).contiguous()
     ABr = torch.empty_like(Mr)
     ABi = torch.empty_like(Mi)
     cbar = torch.empty((B, degree), dtype=torch.float32, device=M.device)
-    lib = _build.lib()
-    with torch.cuda.device(M.device):
-        err = lib.cheb_bwd_launch(
-            Mr.data_ptr(), Mi.data_ptr(), c.data_ptr(), Yr.data_ptr(), Yi.data_ptr(),
-            *(x.data_ptr() for x in carries), ABr.data_ptr(), ABi.data_ptr(),
-            cbar.data_ptr(), B, P, m, degree, int(three_pass),
-            torch.cuda.current_stream(M.device).cuda_stream,
-        )
-    _build.check(err, "cheb_bwd_launch")
-    bwd_launches.count += 1
+    b1r, b1i, b2r, b2i = carries
+    _build.launch("cheb_bwd_launch", bwd_launches, Mr=Mr, Mi=Mi, coeffs=c, Yr=Yr,
+                  Yi=Yi, b1r=b1r, b1i=b1i, b2r=b2r, b2i=b2i, ABr=ABr, ABi=ABi, cbar=cbar,
+                  B=B, P=P, m=m, degree=degree, three_pass=int(three_pass))
     return ABr, ABi, cbar
 
 
@@ -302,10 +266,8 @@ def cheb_fwd_with_residuals(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
     tensor."""
     if M.device.type == "cpu":
         return cheb_filter_matrices_plain_with_residuals(M, coeffs, degree)
-    if M.device.type != "cuda":
-        raise ValueError(f"unsupported device {M.device}")
     m = M.shape[-1]
-    Gr, Gi, carries = cheb_fwd_planes(M, coeffs, degree, final_hi)
+    Gr, Gi, carries = cheb_filter_planes(M, coeffs, degree, final_hi, carries=True)
     return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape), carries
 
 
@@ -326,8 +288,6 @@ def cheb_bwd(M: torch.Tensor, coeffs: torch.Tensor, carries, Y: torch.Tensor, de
     three_pass = _bwd_tier(M, three_pass)
     if M.device.type == "cpu":
         return cheb_bwd_plain(M, coeffs, carries, Y, degree, three_pass)
-    if M.device.type != "cuda":
-        raise ValueError(f"unsupported device {M.device}")
     m = M.shape[-1]
     ABr, ABi, cbar = cheb_bwd_planes(M, coeffs, carries, Y.contiguous(), degree, three_pass)
     Abar = torch.complex(ABr[:, :m, :m], ABi[:, :m, :m]).reshape(M.shape)
@@ -372,8 +332,6 @@ def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
     ``final_hi``; on the CPU every product is fp32.
     """
     _check(M, coeffs, degree)
-    if M.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {M.device}")
     if torch.is_grad_enabled() and (M.requires_grad or coeffs.requires_grad):
         return ChebFilterFn.apply(M, coeffs, degree, final_hi, bwd_three_pass)
     if M.device.type == "cpu":
@@ -381,7 +339,7 @@ def cheb_filter_matrices(M: torch.Tensor, coeffs: torch.Tensor, degree: int,
     if M.numel() == 0:
         return M.clone()
     m = M.shape[-1]
-    Gr, Gi = cheb_filter_planes(M, coeffs, degree, final_hi)
+    Gr, Gi, _ = cheb_filter_planes(M, coeffs, degree, final_hi)
     return torch.complex(Gr[:, :m, :m], Gi[:, :m, :m]).reshape(M.shape)
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from admmnet_tpu_torch.kernels import _build
 from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
@@ -139,8 +140,9 @@ def eigh_jacobi_plain(M: torch.Tensor, sweeps: bool = False):
 
 
 def check_side(M: torch.Tensor) -> int:
-    """Raise for what the kernel does not take; no CUDA call is made before
-    these checks.  Returns the block's shared memory in bytes."""
+    """Raise for what the kernel does not take (the device is
+    ``_build.launch``'s to check); no CUDA call is made before these
+    checks.  Returns the block's shared memory in bytes."""
     if M.dtype != torch.complex64:
         raise TypeError(f"expected complex64 M, got {M.dtype}")
     if M.dim() < 2 or M.shape[-1] != M.shape[-2]:
@@ -148,10 +150,6 @@ def check_side(M: torch.Tensor) -> int:
     m = M.shape[-1]
     if not 1 <= m <= MAX_SIDE:
         raise ValueError(f"matrix side {m} outside the kernel's 1..{MAX_SIDE}")
-    if M.device.type != "cuda":
-        raise ValueError(f"unsupported device {M.device}")
-    if not M.is_contiguous():
-        raise ValueError("expected a contiguous M")
     return smem_bytes(m)
 
 
@@ -169,17 +167,8 @@ def eigh_kernel(M: torch.Tensor, sweeps: bool = False):
     V = torch.empty((*batch, m, m), dtype=torch.complex64, device=dev)
     count = torch.empty(batch, dtype=torch.int32, device=dev)
     if B:
-        from admmnet_tpu_torch.kernels import _build
-
-        lib = _build.lib()
-        with torch.cuda.device(dev):
-            err = lib.eigh_jacobi_launch(M.data_ptr(), w.data_ptr(), V.data_ptr(),
-                                         count.data_ptr(), B, m, MAX_SWEEPS, smem,
-                                         torch.cuda.current_stream(dev).cuda_stream)
-        if err == -1:
-            raise RuntimeError(f"smem_bytes gives {smem} bytes, not csrc/eigh_jacobi.cu's layout")
-        _build.check(err, "eigh_jacobi_launch")
-        launches.count += 1
+        _build.launch("eigh_jacobi_launch", launches, M=M, w=w, V=V, sweeps=count, B=B,
+                      m=m, max_sweeps=MAX_SWEEPS, smem=smem)
     return (w, V, count) if sweeps else (w, V)
 
 

@@ -25,12 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from admmnet_tpu_torch.kernels.fused_admm_fast import (
-    check_launch,
-    check_rows,
-    solve_inputs,
-    solve_plain,
-)
+from admmnet_tpu_torch.kernels import _build
+from admmnet_tpu_torch.kernels.fused_admm_fast import check_rows, solve_inputs, solve_plain
 from admmnet_tpu_torch.kernels.polar import padded_side
 from admmnet_tpu_torch.ops.projections import POLAR_QUINTIC_SCHEDULE, project_l1_ball
 from admmnet_tpu_torch.utils.profiling import LaunchCounter
@@ -101,9 +97,6 @@ def admm_solve_fused(
     if y.device.type == "cpu":
         return admm_solve_fused_plain(y, b, sigma, num_iters, rho, lambda_val,
                                       outer_iters, inner_iters)
-    check_launch(y, b, sigma)
-    from admmnet_tpu_torch.kernels import _build
-
     yob_r, yob_i, w, A = solve_inputs(y, b, sigma, rho)
     phi_r = torch.empty((B, n), dtype=torch.float32, device=y.device)
     phi_i = torch.empty_like(phi_r)
@@ -111,15 +104,10 @@ def admm_solve_fused(
         return torch.complex(phi_r, phi_i)
     zscratch = torch.empty((B, Z_PLANES, P, P), dtype=torch.float32, device=y.device)
     coeffs = np.ascontiguousarray(POLAR_QUINTIC_SCHEDULE, dtype=np.float32)
-    lib = _build.lib()
-    with torch.cuda.device(y.device):
-        err = lib.fused_admm_launch(
-            yob_r.data_ptr(), yob_i.data_ptr(), w.data_ptr(), A.data_ptr(),
-            phi_r.data_ptr(), phi_i.data_ptr(), zscratch.data_ptr(),
-            B, n, P, int(num_iters), float(rho), float(1.0 / lambda_val**2),
-            coeffs.ctypes.data, len(POLAR_QUINTIC_SCHEDULE), int(outer_iters),
-            int(inner_iters), torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    _build.check(err, "fused_admm_launch")
-    launches.count += 1
+    _build.launch(
+        "fused_admm_launch", launches, yob_r=yob_r, yob_i=yob_i, w=w, A=A,
+        phi_r=phi_r, phi_i=phi_i, zscratch=zscratch, B=B, n=n, P=P, num_iters=int(num_iters),
+        rho=float(rho), lam_inv_sq=float(1.0 / lambda_val**2), coeffs=coeffs.ctypes.data,
+        nsteps=len(POLAR_QUINTIC_SCHEDULE), outer_iters=int(outer_iters),
+        inner_iters=int(inner_iters))
     return torch.complex(phi_r, phi_i)

@@ -65,6 +65,7 @@ import math
 import numpy as np
 import torch
 
+from admmnet_tpu_torch.kernels import _build
 from admmnet_tpu_torch.kernels.polar import (
     abs_product,
     frobenius_inv,
@@ -135,15 +136,6 @@ def check_rows(y: torch.Tensor, b: torch.Tensor) -> None:
         raise TypeError("expected complex64 y and b")
     if y.device != b.device:
         raise ValueError("y and b on different devices")
-
-
-def check_launch(y: torch.Tensor, b: torch.Tensor, sigma) -> None:
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    if not (y.is_contiguous() and b.is_contiguous()):
-        raise ValueError("expected contiguous y and b")
-    if isinstance(sigma, torch.Tensor) and sigma.device != y.device:
-        raise ValueError("sigma on another device than y")
 
 
 # ---- plain version ----------------------------------------------------------
@@ -392,15 +384,12 @@ def admm_solve_fused_fast(
               three_pass=three_pass)
     if y.device.type == "cpu":
         return admm_solve_fused_fast_plain(y, b, sigma, num_iters, rho, lambda_val, **kw)
-    check_launch(y, b, sigma)
     if ablate != "none" and three_pass:
         raise ValueError("the kernel runs the ablate variants without three_pass")
     sched = full_schedule(schedule, hi_steps, all_hi)
     if three_pass and one_pass_products(len(sched), hi_steps, all_hi, final_hi):
         raise ValueError("the kernel runs three_pass only with every product hi "
                          "(all_hi or hi_steps covering the schedule, and final_hi)")
-    from admmnet_tpu_torch.kernels import _build
-
     yob_r, yob_i, w, A = solve_inputs(y, b, sigma, rho)
     phi_r = torch.empty((B, n), dtype=torch.float32, device=y.device)
     phi_i = torch.empty_like(phi_r)
@@ -408,17 +397,12 @@ def admm_solve_fused_fast(
         return torch.complex(phi_r, phi_i)
     coeffs = np.ascontiguousarray(sched, dtype=np.float32)
     lists = layout == "lists"
-    lib = _build.lib()
-    with torch.cuda.device(y.device):
-        err = lib.fused_admm_fast_launch(
-            yob_r.data_ptr(), yob_i.data_ptr(), w.data_ptr(), A.data_ptr(),
-            phi_r.data_ptr(), phi_i.data_ptr(),
-            B, n, P, int(num_iters), float(rho), float(1.0 / lambda_val**2),
-            coeffs.ctypes.data, len(sched), int(hi_steps), int(outer_iters),
-            int(inner_iters), int(final_hi), int(warm_root), int(all_hi),
-            int(three_pass), int(fold_diag), int(lists), ABLATE.index(ablate),
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    _build.check(err, "fused_admm_fast_launch")
-    (lists_launches if lists else launches).count += 1
+    _build.launch(
+        "fused_admm_fast_launch", lists_launches if lists else launches,
+        yob_r=yob_r, yob_i=yob_i, w=w, A=A, phi_r=phi_r, phi_i=phi_i, B=B, n=n, P=P,
+        num_iters=int(num_iters), rho=float(rho), lam_inv_sq=float(1.0 / lambda_val**2),
+        coeffs=coeffs.ctypes.data, nsteps=len(sched), hi_steps=int(hi_steps),
+        outer_iters=int(outer_iters), inner_iters=int(inner_iters), final_hi=int(final_hi),
+        warm_root=int(warm_root), all_hi=int(all_hi), three_pass=int(three_pass),
+        fold_diag=int(fold_diag), lists=int(lists), ablate=ABLATE.index(ablate))
     return torch.complex(phi_r, phi_i)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from admmnet_tpu_torch.kernels import _build
 from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 MAX_PEAKS = 32  # K: one warp sorts a scene's list
@@ -54,8 +55,9 @@ def smem_bytes(Nb: int, Nd: int, ny: int, nx: int, K: int, P: int) -> int:
 
 
 def check_search(phi: torch.Tensor, Nb: int, Nd: int, cfg, ny: int, nx: int) -> int:
-    """Raise, naming the limit, for what the kernel does not take; no CUDA
-    call is made before these checks.  Returns the block's shared memory in
+    """Raise, naming the limit, for what the kernel does not take (the
+    device is ``_build.launch``'s to check); no CUDA call is made before
+    these checks.  Returns the block's shared memory in
     bytes."""
     if phi.dtype != torch.complex64:
         raise TypeError(f"expected complex64 phi, got {phi.dtype}")
@@ -75,10 +77,6 @@ def check_search(phi: torch.Tensor, Nb: int, Nd: int, cfg, ny: int, nx: int) -> 
         raise ValueError(f"a {ny} x {nx} coarse grid at Nb = {Nb}, Nd = {Nd}, max_peaks {K}, "
                          f"refine_points {P} needs {need} bytes of shared memory a block, "
                          f"above the kernel's {SMEM_LIMIT}")
-    if phi.device.type != "cuda":
-        raise ValueError(f"unsupported device {phi.device}")
-    if not phi.is_contiguous():
-        raise ValueError("expected a contiguous phi")
     return need
 
 
@@ -97,21 +95,12 @@ def peak_search(phi: torch.Tensor, Nb: int, Nd: int, cfg, consts):
     valid = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B == 0:
         return tau, f, height, valid
-    from admmnet_tpu_torch.kernels import _build
-
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        err = lib.peak_search_launch(
-            phi.data_ptr(), consts.S.data_ptr(), consts.DcT.data_ptr(), consts.taus.data_ptr(),
-            consts.fs.data_ptr(), consts.rel.data_ptr(), tau.data_ptr(), f.data_ptr(),
-            height.data_ptr(), valid.data_ptr(), B, Nb, Nd, ny, nx, K, cfg.refine_points,
-            smem, cfg.refine_iters, int(cfg.refine_precision == "default"),
-            cfg.delay_min, cfg.delay_max - 1e-6, cfg.doppler_min, cfg.doppler_max - 1e-6,
-            cfg.delay_step, cfg.doppler_step, cfg.reduce_factor,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err == -1:
-        raise RuntimeError(f"smem_bytes gives {smem} bytes, not csrc/peak_search.cu's layout")
-    _build.check(err, "peak_search_launch")
-    launches.count += 1
+    _build.launch(
+        "peak_search_launch", launches, phi=phi, S=consts.S, DcT=consts.DcT,
+        taus=consts.taus, fs=consts.fs, rel=consts.rel, tau=tau, f=f, height=height,
+        valid=valid, B=B, Nb=Nb, Nd=Nd, ny=ny, nx=nx, K=K, P=cfg.refine_points, smem=smem,
+        iters=cfg.refine_iters, one_pass=int(cfg.refine_precision == "default"),
+        tau_lo=cfg.delay_min, tau_hi=cfg.delay_max - 1e-6, f_lo=cfg.doppler_min,
+        f_hi=cfg.doppler_max - 1e-6, half_t=cfg.delay_step, half_f=cfg.doppler_step,
+        reduce=cfg.reduce_factor)
     return tau, f, height, valid

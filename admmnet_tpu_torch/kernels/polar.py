@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from admmnet_tpu_torch.kernels import _build
 from admmnet_tpu_torch.ops.projections import (
     POLAR_BF16_POLISH,
     POLAR_BF16_SCHEDULE,
@@ -268,36 +269,19 @@ def psd_project_polar_planes(M: torch.Tensor, mode: str = "accurate", hi_steps=N
     return launch_schedule(M, schedule, hi_steps, bf16_store and mode == "fast")
 
 
-def check_launch(M: torch.Tensor) -> None:
-    if M.device.type != "cuda":
-        raise ValueError(f"unsupported device {M.device}")
-    if not M.is_contiguous():
-        raise ValueError("expected a contiguous tensor")
-
-
 def launch_schedule(M: torch.Tensor, schedule, hi_steps: int, bf16_store: bool):
     """``psd_project_polar_planes`` with any schedule of at most 8 steps:
     K1's launcher, whose low steps run one-pass (the card's tier)."""
     P = _check_matrix(M)
-    check_launch(M)
-    from admmnet_tpu_torch.kernels import _build
-
     m = M.shape[-1]
     Mf = M.reshape(-1, m, m)
-    B = Mf.shape[0]
     pad = (0, P - m, 0, P - m)
     Mr = torch.nn.functional.pad(Mf.real, pad).contiguous()
     Mi = torch.nn.functional.pad(Mf.imag, pad).contiguous()
     Pr = torch.empty_like(Mr)
     Pi = torch.empty_like(Mi)
     coeffs = np.ascontiguousarray(schedule, dtype=np.float32)
-    lib = _build.lib()
-    with torch.cuda.device(M.device):
-        err = lib.polar_psd_launch(
-            Mr.data_ptr(), Mi.data_ptr(), Pr.data_ptr(), Pi.data_ptr(),
-            B, P, m, coeffs.ctypes.data, len(schedule), int(hi_steps), int(bf16_store),
-            torch.cuda.current_stream(M.device).cuda_stream,
-        )
-    _build.check(err, "polar_psd_launch")
-    launches.count += 1
+    _build.launch("polar_psd_launch", launches, Mr=Mr, Mi=Mi, Pr=Pr, Pi=Pi,
+                  B=Mf.shape[0], P=P, m=m, coeffs=coeffs.ctypes.data, nsteps=len(schedule),
+                  hi_steps=int(hi_steps), bf16_store=int(bf16_store))
     return Pr, Pi

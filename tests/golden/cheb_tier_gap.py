@@ -1,6 +1,7 @@
 """The CPU measurements behind chip_smoke.py's learned-path tolerances at
 the Clenshaw kernels' card tiers (``NET3_PHI_TOL``, ``GOLDEN_LOSS_TOL``,
-``GOLDEN_PARAM_TOL``, ``PHI_GOLDEN_STEP1_TOL``, ``K6_AUTOGRAD_TOL``).
+``GOLDEN_PARAM_TOL``, ``PHI_GOLDEN_STEP1_TOL``) and the gradient limits of
+tests/test_torch_cuda.py's ``test_cheb_filter_fn_backward_on_cuda``.
 
 On the card K4/K5 run one-pass bf16 products and K6 the split-bf16 product
 with rounded residuals (the JAX package's tiers on the TPU); the JAX
@@ -12,8 +13,8 @@ one_pass=True``), and prints each gate's number for both: net-3's phi on
 the 512 random scenes against net3_random512_jax.npz and its F1 (phase
 11), three net-3 recipe steps against net3_train_golden.msgpack (phase
 15), the phi net's steps against phinet_train_golden.msgpack (phase 27),
-and the reversible gradient at phase 14's inputs against torch autograd
-through the fp32 plain forward.  The emulation also runs with its one-pass
+and the reversible gradient on ``B_K56`` spiked matrices against torch
+autograd through the fp32 plain forward.  The emulation also runs with its one-pass
 sums in float64 (``card_tier(f64=True)``): how far two valid summation
 orders of the card's arithmetic sit apart, printed last for the steps of
 phases 15 and 27 (chip_smoke holds the card's steps to their emulation on
@@ -63,8 +64,8 @@ def gradient(fn, M, c, Y):
 
 def main():
     cpu = torch.device("cpu")
-    # phase 14's autograd gate: the reversible gradient vs torch autograd
-    # through the fp32 plain forward, the zero matrix left out
+    # the card test's autograd gate: the reversible gradient vs torch
+    # autograd through the fp32 plain forward, the zero matrix left out
     M, c, Y = chip_smoke.cheb_inputs(np.random.default_rng(4), chip_smoke.B_K56, cpu)
     M, c, Y = M[:-1], c[:-1], Y[:-1]
     ref = gradient(kc.cheb_filter_matrices_plain, M, c, Y)

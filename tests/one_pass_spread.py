@@ -1,7 +1,7 @@
-"""The card measurements behind the one-pass tolerances of K2 and K3 in
-tests/test_torch_cuda.py and chip_smoke.py (``K2_ONE_PASS``,
-``K2_ONE_PASS_TOL``), and of the Clenshaw kernels' tiers (``K4_ONE_PASS_TOL``,
-``K6_SPLIT_TOL``).
+"""The card measurements behind the one-pass tolerances of K2 and K3
+(``K2_ONE_PASS``) and of the Clenshaw kernels' tiers (``K4_ONE_PASS``,
+``K4_SPIKED_SPREAD``, ``K6_TOL``) in tests/card_checks.py, which the card
+tests and chip_smoke.py hold the kernels to.
 
 For each configuration of tests/test_torch_cuda.py that holds K2 or K3 to
 its one-pass emulation (``one_pass=True``), prints the per-instance
@@ -82,7 +82,7 @@ def cheb(dev):
     for B, m, D, seed in cases:
         M, c, _ = cheb_inputs(dev, B, m, D, seed)
         for final_hi in (False, True):
-            Gr, Gi, car = kc.cheb_fwd_planes(M, c, D, final_hi)
+            Gr, Gi, car = kc.cheb_filter_planes(M, c, D, final_hi, carries=True)
             G = torch.complex(Gr[:, :m, :m], Gi[:, :m, :m])
             ge, ce = kc.cheb_filter_matrices_plain_with_residuals(M, c, D, True, final_hi)
             g64, c64 = sums_in_float64(kc.cheb_filter_matrices_plain_with_residuals, M, c, D,
@@ -105,7 +105,7 @@ def cheb(dev):
         if m not in (101, 120):
             continue
         M, c, Y = cheb_inputs(dev, B, m, D, seed)
-        _, _, car = kc.cheb_fwd_planes(M, c, D)
+        _, _, car = kc.cheb_filter_planes(M, c, D, carries=True)
         crop = [x[:, :m, :m] for x in car]
         for tp in (True, False):
             Ab, cb = kc.cheb_bwd(M, c, car, Y, D, tp)

@@ -34,7 +34,6 @@ Tolerances, with their reasons:
   (tests/test_fused_fast.py; measured 3.5e-3).
 """
 
-import contextlib
 import types
 
 import jax
@@ -192,46 +191,30 @@ def test_the_tier_follows_the_device():
                        kf.admm_solve_fused_fast_plain(*rows, 3, **kw))
 
 
-class _FakeLibrary:
-    """Records the arguments of each C entry point it is called through."""
+class _FakeLaunches:
+    """Records the entry point and the named arguments of each launch."""
 
     def __init__(self):
         self.calls = []
 
-    def __getattr__(self, name):
-        def launch(*args):
-            self.calls.append((name, args))
-            return 0
-        return launch
+    def __call__(self, entry, counter, **args):
+        assert set(args) == set(_build.ARGS[entry]), entry
+        self.calls.append((entry, args))
 
 
 @pytest.fixture
 def fake_card(monkeypatch):
     """Meta tensors stand in for the card's: the wrappers take the launch
-    branch, and the launcher's arguments land in a _FakeLibrary."""
-    lib = _FakeLibrary()
-    monkeypatch.setattr(_build, "lib", lambda: lib)
-    monkeypatch.setattr(kp, "check_launch", lambda M: None)
-    monkeypatch.setattr(kf, "check_launch", lambda y, b, sigma: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
-    return lib
+    branch, and ``_build.launch`` records their launches (_FakeLaunches)."""
+    launches = _FakeLaunches()
+    monkeypatch.setattr(_build, "launch", launches)
+    return launches
 
 
 def _meta_rows(B=4, n=100):
     return (torch.empty((B, n), dtype=torch.complex64, device="meta"),
             torch.empty((B, n), dtype=torch.complex64, device="meta"),
             torch.empty((B,), dtype=torch.float32, device="meta"))
-
-
-# fused_admm_fast_launch's arguments (kernels/_build.py SIGNATURES)
-K2_ARGS = ("yob_r", "yob_i", "w", "A", "phi_r", "phi_i", "B", "n", "P", "num_iters", "rho",
-           "lam_inv_sq", "coeffs", "nsteps", "hi_steps", "outer_iters", "inner_iters",
-           "final_hi", "warm_root", "all_hi", "three_pass", "fold_diag", "lists", "ablate",
-           "stream")
-K1_ARGS = ("Mr", "Mi", "Pr", "Pi", "B", "P", "m", "coeffs", "nsteps", "hi_steps", "bf16_store",
-           "stream")
 
 
 @pytest.mark.parametrize("g_update, iters, one_pass", [
@@ -241,9 +224,8 @@ K1_ARGS = ("Mr", "Mi", "Pr", "Pi", "B", "P", "m", "coeffs", "nsteps", "hi_steps"
 ])
 def test_the_fused_dispatch_launches_its_tier(fake_card, g_update, iters, one_pass):
     admm.admm_solve_fixed(*_meta_rows(), iters, 1.0, ADMMOptions(g_update=g_update))
-    (name, args), = fake_card.calls
-    assert name == "fused_admm_fast_launch" and len(args) == len(K2_ARGS)
-    a = dict(zip(K2_ARGS, args))
+    (name, a), = fake_card.calls
+    assert name == "fused_admm_fast_launch"
     assert a["num_iters"] == iters
     low = kf.one_pass_products(a["nsteps"], a["hi_steps"], bool(a["all_hi"]),
                                bool(a["final_hi"]))
@@ -276,11 +258,30 @@ def test_three_pass_with_low_products_is_refused_on_the_card(fake_card, knobs):
 def test_the_polar_dispatch_launches_its_tier(fake_card, g_update, bf16_store, low_steps):
     M = torch.empty((4, 101, 101), dtype=torch.complex64, device="meta")
     admm._g_step(M, ADMMOptions(g_update=g_update, polar_bf16_store=bf16_store))
-    (name, args), = fake_card.calls
-    assert name == "polar_psd_launch" and len(args) == len(K1_ARGS)
-    a = dict(zip(K1_ARGS, args))
+    (name, a), = fake_card.calls
+    assert name == "polar_psd_launch"
     assert a["bf16_store"] == int(bf16_store)
     assert a["nsteps"] - a["hi_steps"] == low_steps
+
+
+@pytest.mark.parametrize("change", ["missing", "unknown"])
+def test_launch_checks_the_names_before_loading_the_library(monkeypatch, change):
+    """``_build.launch`` takes exactly the names of the entry point's
+    ``SIGNATURES`` row: a missing or an unknown one raises TypeError, naming
+    it, before the library loads."""
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "lib", no_library)
+    args = dict.fromkeys(_build.ARGS["eigh_jacobi_launch"], 0)
+    if change == "missing":
+        del args["smem"]
+    else:
+        args["stream"] = 0
+    counter = types.SimpleNamespace(count=0)
+    with pytest.raises(TypeError, match="smem" if change == "missing" else "stream"):
+        _build.launch("eigh_jacobi_launch", counter, **args)
+    assert counter.count == 0
 
 
 def test_refine_one_pass_rounds_the_operands():

@@ -65,12 +65,14 @@ def test_checks_raise_before_any_cuda_call(no_cuda, case, kind, match):
 @pytest.mark.parametrize("cfg", PACKAGE_CONFIGS, ids=["default", "production", "eval_net"])
 def test_every_package_config_fits(no_cuda, cfg):
     """The package's configurations pass every check but the device: the
-    grid's block fits the card's shared memory."""
+    grid's block fits the card's shared memory, and only the launch's
+    device guard refuses a CPU phi."""
     taus, fs = _coarse_axes(cfg)
     need = kps.smem_bytes(10, 10, fs.size, taus.size, cfg.max_peaks, cfg.refine_points)
     assert need <= kps.SMEM_LIMIT
+    assert kps.check_search(_phi(1), 10, 10, cfg, fs.size, taus.size) == need
     with pytest.raises(ValueError, match="unsupported device"):
-        kps.check_search(_phi(1), 10, 10, cfg, fs.size, taus.size)
+        kps.peak_search(_phi(1), 10, 10, cfg, search_constants(cfg, 10, 10, CPU))
 
 
 def test_shared_memory_of_the_production_block():

@@ -1,6 +1,6 @@
 """Rank functions of the port's multi-rank tests (``test_torch_parallel.py``,
-``test_torch_cuda.py``), run by ``admmnet_tpu_torch.parallel.spawn_ranks``
-in spawned processes.  This module imports torch, numpy and the port only,
+``test_torch_cuda.py``) and of chip_smoke.py's phase 26, run by
+``admmnet_tpu_torch.parallel.spawn_ranks`` in spawned processes.  This module imports torch, numpy and the port only,
 never JAX: the ranks must not load it."""
 
 import json
@@ -61,28 +61,29 @@ def fleet_checks(mesh, zlayer, train, workdir):
 
 
 def sharded_solve(mesh, y, b, sigma, iters, opts):
-    """The gathered phi of ``sharded_solver`` on this rank's mesh, and the
-    K2 launches this rank made."""
+    """The gathered phi of ``sharded_solver`` on this rank's mesh, the
+    gathered PRODUCTION_PEAKS lists of its shards (numpy, by field), and
+    the K2 launches this rank made."""
+    from admmnet_tpu_torch.core.config import PRODUCTION_PEAKS
     from admmnet_tpu_torch.kernels import fused_admm_fast
     from admmnet_tpu_torch.parallel import gather_batch, sharded_solver
+    from admmnet_tpu_torch.peaks import find_peaks
 
     fused_admm_fast.launches.reset()
-    phi = gather_batch(sharded_solver(mesh, iters, opts=opts)(y, b, sigma), mesh)
-    return phi.cpu().numpy(), fused_admm_fast.launches.count
+    shards = sharded_solver(mesh, iters, opts=opts)(y, b, sigma)
+    peaks = gather_batch([find_peaks(p, 10, 10, PRODUCTION_PEAKS) for p in shards], mesh)
+    phi = gather_batch(shards, mesh)
+    return (phi.cpu().numpy(), {k: v.cpu().numpy() for k, v in peaks._asdict().items()},
+            fused_admm_fast.launches.count)
 
 
-def train_steps(mesh, data, steps):
-    """``steps`` recipe-sized training steps on the mesh; the losses and
-    the final parameters."""
-    from admmnet_tpu_torch.core.config import ModelConfig, ProblemSpec, TrainConfig
+def train_steps(mesh, data, mcfg, tcfg):
+    """``train_admmnet(mcfg, tcfg)`` on the mesh, ``data`` its training and
+    validation set; the losses and the final parameters."""
     from admmnet_tpu_torch.train.trainer import train_admmnet
     import tempfile
 
-    spec = ProblemSpec(Nb=4, Nd=4, L_max=2)
     with tempfile.TemporaryDirectory() as tmp:
-        r = train_admmnet(ModelConfig(spec=spec, num_layers=2, hidden_dim=32, g_mode="chebyshev",
-                                      cheb_impl="pallas", head="spectrum"),
-                          TrainConfig(batch_size=data["y"].shape[0], epochs=steps,
-                                      assignment="perm"),
-                          data, data, workdir=tmp, log_fn=lambda *_: None, mesh=mesh)
+        r = train_admmnet(mcfg, tcfg, data, data, workdir=tmp, log_fn=lambda *_: None,
+                          mesh=mesh)
     return r.history["train_loss"], {k: v.numpy() for k, v in r.params.items()}
