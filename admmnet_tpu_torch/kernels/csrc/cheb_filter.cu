@@ -35,24 +35,59 @@
 // (989 TFLOP/s) that is 0.29 us a matrix; in 3xTF32 (three TF32 products
 // per useful one at 495 TFLOP/s) it was 1.76 us.
 //
-// Design (tc_product.cuh, as cheb_bwd.cu): one thread-block cluster of
-// P / 16 CTAs per matrix; CTA q owns rows [16 q, 16 q + 16) of A, b_1 and
-// b_2 as real/imaginary band planes in its shared memory, beside the
-// staging double buffer (75328 B a CTA at P = 112, two CTAs an SM).  A
-// step is one band_product on the tensor cores (bf16 mma.sync, Karatsuba):
-// the CTA's band of A against b_1's bands, staged from their
-// owners through distributed shared memory, own band first.  X = c_j I +
-// 2 A b_1 - b_2 is formed in the accumulator layout in the stage's first
-// half; after a cluster barrier each warp copies the one 16 x 16 block of
-// X^T its columns need from the CTA that owns it, as float4 reads, into
-// the stage's second half (scalar remote reads there cost 15% of the
-// kernel), and writes b_0 = herm(X) over b_2, which no other CTA reads;
+// Design: one thread-block cluster of P / 16 CTAs per matrix; CTA q owns
+// rows [16 q, 16 q + 16) of A, b_1 and b_2 as fp32 real/imaginary band
+// planes in its shared memory (row stride P + 4), warp w its columns
+// [16 w, 16 w + 16).  A step's product A b_1 reads its operands as bf16,
+// rounded once where they are made, not at every fragment load:
+// - A's band is packed once, after the normalization, in fragment order
+//   (Apk: for each 16-deep step q and lane, three uint4 holding load_a16's
+//   re, im and bf16(re + im) registers, the sum formed in fp32); every
+//   warp of the CTA reads the same 3 x 16 B a lane and step;
+// - b_1's owner packs its band when it writes it (Bop), in the fragment
+//   order of load_b16: for each column block w and lane, three uint4 of
+//   the re, im and sum registers of the warp's two n-tiles, a register
+//   holding rows (k, k + 4) of a column, as load_b16 pairs them.  The
+//   initial b_1 = c_{degree-1} I is packed the same way.
+// Each warp pulls its own column block of b_1's bands from their owners
+// through distributed shared memory (cluster.map_shared_rank), 16-byte
+// loads straight into registers, the next band's in flight while the
+// current one multiplies (two or three bands ahead timed the same), in the
+// rotated band order of tc_product.cuh's band_product, own band first, and
+// runs three bf16 mma.sync m16n8k16 (Karatsuba) a band and n-tile.  No
+// warp reads another's columns, so the product has no staging buffer and
+// no barrier.
+// The rounding, the k pairing within each 16-deep step, the band order and
+// the accumulation order are band_product<ONE_PASS_BF16>'s, so G and the
+// carries are its bits.  One operand buffer is enough: every product of
+// a step has ended before the step's first cluster barrier (X is visible),
+// the owner repacks b_0 only after it, and nobody reads the operand again
+// before the second barrier publishes it.
+//
+// Bytes over distributed shared memory a CTA and product at m = 101
+// (P = 112): b_1's six remote bands, 6 x 10752 B (bf16, three planes)
+// where fp32 staging of two planes moved 6 x 14336 B, and herm's six
+// remote 16 x 16 blocks of X, 12288 B: 76800 B, 98304 B before.  K4 at
+// B = 8192 fell from 138.5 to 106.6 ms on an H100 with these bytes, both
+// ~1.9 TB/s over the cluster: the network sets the kernel's pace.
+//
+// Between products: X = c_j I + 2 A b_1 - b_2 is formed in the accumulator
+// layout in the stage's first half; after a cluster barrier each warp
+// copies the one 16 x 16 block of X^T its columns need from the CTA that
+// owns it, as float4 reads, into the stage's second half (scalar remote
+// reads there cost 15% of the kernel), and writes b_0 = herm(X) over b_2,
+// which no other CTA reads, then packs its column block of b_0 into Bop;
 // b_1 and b_2 swap by pointer, and a second cluster barrier publishes b_0.
-// ||M||_F is summed over the cluster in rank order, as cheb_bwd.cu sums it,
-// so K6 rebuilds the forward's states from the same A.  Nothing but the
-// inputs and outputs touches device memory.  K4 and K5 are one
-// instantiation: the carry pointers are a run-time choice, so K5's G is
-// K4's bit for bit.
+// The closing product with final_hi is band_product<TF32X3> on the fp32
+// planes of A and b_1 through the stage, as a double buffer of staged fp32
+// bands (tc_product.cuh).  Shared memory a CTA: 6 band planes, the stage
+// (4 staged fp32 bands: X and herm's blocks, or final_hi's double buffer),
+// Apk and Bop (NC x 1536 B each) and 16 floats: 96832 B at P = 112 (two
+// CTAs an SM), 110144 B at P = 128.  ||M||_F is summed over the cluster in
+// rank order, as cheb_bwd.cu sums it, so K6 rebuilds the forward's states
+// from the same A.  Nothing but the inputs and outputs touches device
+// memory.  K4 and K5 are one instantiation: the carry pointers are a
+// run-time choice, so K5's G is K4's bit for bit.
 //
 // Padding: the planes are zero-padded from m to P.  c_j is added on the
 // logical diagonal only (row < m), so every padded row and column stays
@@ -62,32 +97,133 @@
 #include "common.cuh"
 #include "tc_product.cuh"
 
-#include <type_traits>
-
 namespace admmk {
 
 namespace cg = cooperative_groups;
 using tcp::BAND;
 using tcp::CAcc;
 using tcp::NPW;
-using tcp::Prec;
-template <Prec PR>
-using PrecTag = std::integral_constant<Prec, PR>;
+using tcp::pack_bf16;
+
+// uint4 of one block of a packed operand (A's 16-deep step, or a column
+// block of b_1's band): three planes (re, im, sum) of 32 lanes
+constexpr int PACKED = 3 * 32;
+
+// uint4 of one packed operand (Apk or Bop): NC blocks
+template <int P>
+__host__ __device__ constexpr int packed_vecs() {
+  return tcp::Layout<P>::NC * PACKED;
+}
+
+// One lane's three fragment registers of each plane into a packed block
+__device__ __forceinline__ void put_packed(uint4* block, int lane, const uint32_t (&r)[4],
+                                           const uint32_t (&i)[4], const uint32_t (&s)[4]) {
+  block[lane] = make_uint4(r[0], r[1], r[2], r[3]);
+  block[32 + lane] = make_uint4(i[0], i[1], i[2], i[3]);
+  block[64 + lane] = make_uint4(s[0], s[1], s[2], s[3]);
+}
 
 template <int P>
 constexpr int fwd_smem_floats() {
-  // 6 band planes (Ar, Ai, b1r, b1i, b2r, b2i), the staging double buffer
-  // (between products: X and herm's transposed blocks), the block
-  // reduction's partials and one cluster-visible slot
-  return 6 * tcp::Layout<P>::PLANE + 4 * tcp::Layout<P>::SLICE + 16;
+  // 6 band planes (Ar, Ai, b1r, b1i, b2r, b2i), the stage (X and herm's
+  // transposed blocks; final_hi's double buffer), the packed A and b_1
+  // (Apk, Bop), the block reduction's partials and one cluster-visible slot
+  return 6 * tcp::Layout<P>::PLANE + 4 * tcp::Layout<P>::SLICE + 2 * 4 * packed_vecs<P>() + 16;
 }
 
 // Row stride of a warp's transposed 16 x 16 block in herm (scalar stores;
 // 2-way bank conflicts on the transposed reads)
 constexpr int WS = 17;
 
-// Two CTAs an SM (75328 B of shared memory a CTA at P = 112, 85568 B at
-// P = 128; a third at P = 112 would cap the registers at 80 and spill).
+// Warp w packs A's 16-deep step q = w (columns [16 w, 16 w + 16) of the
+// band planes, row stride SA) into Apk: for each lane, three uint4 of
+// load_a16's re, im and sum registers (its PTX k pairs from columns
+// (k, k + 4), the sum formed in fp32 and rounded once).
+template <int SA>
+__device__ __forceinline__ void pack_a(uint4* Apk, const float* Ar, const float* Ai, int q,
+                                       int lane) {
+  const int g = lane >> 2, q4 = lane & 3, k0 = q * BAND;
+  const int idx[4] = {g * SA + k0 + q4, (g + 8) * SA + k0 + q4, g * SA + k0 + q4 + 8,
+                      (g + 8) * SA + k0 + q4 + 8};
+  uint32_t r[4], i[4], s[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xr0 = Ar[idx[e]], xr1 = Ar[idx[e] + 4];
+    const float xi0 = Ai[idx[e]], xi1 = Ai[idx[e] + 4];
+    r[e] = pack_bf16(xr0, xr1);
+    i[e] = pack_bf16(xi0, xi1);
+    s[e] = pack_bf16(xr0 + xi0, xr1 + xi1);
+  }
+  put_packed(Apk + q * PACKED, lane, r, i, s);
+}
+
+// Warp w packs its column block of a b band (planes Sr, Si, row stride SA)
+// into Bop: for each lane, three uint4 of load_b16's re, im and sum
+// registers, words (n-tile j, register e) in the order (0, 0), (0, 1),
+// (1, 0), (1, 1); register e pairs rows (k, k + 4), k = lane % 4 + 8 e, of
+// column 16 w + 8 j + lane / 4.
+template <int SA>
+__device__ __forceinline__ void pack_b(uint4* Bop, const float* Sr, const float* Si, int w,
+                                       int lane) {
+  const int g = lane >> 2, q4 = lane & 3;
+  uint32_t r[4], i[4], s[4];
+#pragma unroll
+  for (int j = 0; j < NPW; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int idx = (q4 + 8 * e) * SA + 16 * w + 8 * j + g;
+      const float yr0 = Sr[idx], yr1 = Sr[idx + 4 * SA];
+      const float yi0 = Si[idx], yi1 = Si[idx + 4 * SA];
+      r[2 * j + e] = pack_bf16(yr0, yr1);
+      i[2 * j + e] = pack_bf16(yi0, yi1);
+      s[2 * j + e] = pack_bf16(yr0 + yi0, yr1 + yi1);
+    }
+  put_packed(Bop + w * PACKED, lane, r, i, s);
+}
+
+// acc = A b_1 in one-pass bf16 from the packed operands: this CTA's Apk and
+// b_1's Bop in each owner, read at this CTA's Bop offset.  Only the first
+// ceil(m / 16) bands are read (the rest are zero padding), in the order
+// rank, rank + 1, ... wrapping at nbands, as band_product reads them.  No
+// barrier: each warp reads only its own column block of every band.
+template <int P>
+__device__ __forceinline__ void packed_product(cg::cluster_group& cluster, const uint4* Apk,
+                                               uint4* Bop, int m, CAcc (&acc)[NPW]) {
+  static_assert(NPW == 2, "a packed block holds two n-tiles");
+  const int nbands = (m + BAND - 1) / BAND;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = static_cast<int>(cluster.block_rank());
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) tcp::zero(acc[j]);
+  const int first = rank % nbands;
+  auto band = [&](int i) { return first + i < nbands ? first + i : first + i - nbands; };
+  auto fetch = [&](int i, uint4 (&b)[3]) {  // this CTA's own band through its local address
+    const int q = band(i);
+    const uint4* src =
+        (q == rank ? Bop : cluster.map_shared_rank(Bop, q)) + warp * PACKED + lane;
+    b[0] = src[0];
+    b[1] = src[32];
+    b[2] = src[64];
+  };
+  uint4 nxt[3];
+  fetch(0, nxt);
+  for (int i = 0; i < nbands; ++i) {
+    const uint4 br = nxt[0], bi = nxt[1], bs = nxt[2];
+    if (i + 1 < nbands) fetch(i + 1, nxt);  // in flight while this band multiplies
+    const uint4* ap = Apk + band(i) * PACKED + lane;
+    const uint4 ar = ap[0], ai = ap[32], as = ap[64];
+    const tcp::CAFrag16 a = {{ar.x, ar.y, ar.z, ar.w},
+                             {ai.x, ai.y, ai.z, ai.w},
+                             {as.x, as.y, as.z, as.w}};
+    const tcp::CBFrag16 b[NPW] = {{{br.x, br.y}, {bi.x, bi.y}, {bs.x, bs.y}},
+                                  {{br.z, br.w}, {bi.z, bi.w}, {bs.z, bs.w}}};
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) tcp::one_pass_mma16<true>(acc[j], a, b[j]);
+  }
+}
+
+// Two CTAs an SM (96832 B of shared memory a CTA at P = 112, 110144 B at
+// P = 128; a third at P = 112 would not fit).
 template <int P>
 __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
     const float* __restrict__ Mr_all, const float* __restrict__ Mi_all,
@@ -111,14 +247,16 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
   float* b2r = b1i + L::PLANE;
   float* b2i = b2r + L::PLANE;
   float* stage = b2i + L::PLANE;
+  uint4* Apk = reinterpret_cast<uint4*>(stage + 4 * L::SLICE);
+  uint4* Bop = Apk + packed_vecs<P>();
   // between a product and the next: X's band, read across the cluster by
   // herm, in the stage's first half, row stride SB; this warp's transposed
   // block in its second half
   float* Xr = stage;
   float* Xi = stage + L::SLICE;
   float* w = stage + 2 * L::SLICE + warp * 2 * BAND * WS;
-  float* red = stage + 4 * L::SLICE;  // one partial per warp
-  float* slot = red + 8;              // ||M||_F^2 partial
+  float* red = reinterpret_cast<float*>(Bop + packed_vecs<P>());  // one partial per warp
+  float* slot = red + 8;                                          // ||M||_F^2 partial
 
   const size_t base = static_cast<size_t>(mat) * P * P;
   const float* c = coeffs + static_cast<size_t>(mat) * degree;
@@ -138,7 +276,7 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
   __syncthreads();
   if (tid == 0) {
     float s = 0.f;
-    for (int w = 0; w < L::NC; ++w) s += red[w];
+    for (int q = 0; q < L::NC; ++q) s += red[q];
     slot[0] = s;
   }
   cluster.sync();
@@ -160,24 +298,23 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
     b2r[li] = 0.f;
     b2i[li] = 0.f;
   }
+  __syncthreads();
+  // A's bf16 fragments for the whole recurrence, and b_1's operand
+  pack_a<SA>(Apk, Ar, Ai, warp, lane);
+  pack_b<SA>(Bop, b1r, b1i, warp, lane);
   cluster.sync();
 
-  // X = cj I + alpha A b_1 - b_2 into the stage's first half, the product
-  // at the tier of the tag; returns once X is visible to the cluster
-  auto form_x = [&](float cj, float alpha, auto tier) {
-    CAcc acc[1][NPW];
-    const float* const lr[1] = {Ar};
-    const float* const li[1] = {Ai};
-    tcp::band_product<P, 1, decltype(tier)::value>(cluster, b1r, b1i, lr, li, stage, m, acc);
-    __syncthreads();  // every warp is done with the stage
+  // X = cj I + alpha acc - b_2 into the stage's first half; returns once X
+  // is visible to the cluster
+  auto form_x = [&](float cj, float alpha, const CAcc (&acc)[NPW]) {
 #pragma unroll
     for (int jj = 0; jj < NPW; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row_of(e), cc = col_of(jj, e), idx = r * SA + cc;
         const float d = (row0 + r == cc && cc < m) ? cj : 0.f;
-        Xr[r * SB + cc] = (d + alpha * tcp::acc_re(acc[0][jj], e)) - b2r[idx];
-        Xi[r * SB + cc] = alpha * tcp::acc_im(acc[0][jj], e) - b2i[idx];
+        Xr[r * SB + cc] = (d + alpha * tcp::acc_re(acc[jj], e)) - b2r[idx];
+        Xi[r * SB + cc] = alpha * tcp::acc_im(acc[jj], e) - b2i[idx];
       }
     cluster.sync();
   };
@@ -216,8 +353,13 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
   };
 
   for (int j = degree - 2; j >= 1; --j) {
-    form_x(c[j], 2.f, PrecTag<Prec::ONE_PASS_BF16>{});
-    // b_0 = herm(X) over b_2, which no other CTA reads; then
+    {
+      CAcc acc[NPW];
+      packed_product<P>(cluster, Apk, Bop, m, acc);
+      form_x(c[j], 2.f, acc);
+    }
+    // b_0 = herm(X) over b_2, which no other CTA reads, and its operand over
+    // b_1's, which every product of this step has read; then
     // (b_1, b_2) <- (b_0, b_1)
     float hr[NPW][4], hi[NPW][4];
     herm(hr, hi);
@@ -229,6 +371,8 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
         b2r[idx] = hr[jj][e];
         b2i[idx] = hi[jj][e];
       }
+    __syncwarp();  // the warp's column block of b_0 is whole
+    pack_b<SA>(Bop, b2r, b2i, warp, lane);
     float* t = b1r;
     b1r = b2r;
     b2r = t;
@@ -238,11 +382,23 @@ __global__ void __launch_bounds__(tcp::Layout<P>::NT, 2) cheb_filter_kernel(
     cluster.sync();  // b_0 is visible; every read of X is done
   }
 
-  // G = herm(c_0 I + A b_1 - b_2), final_hi: in 3xTF32
-  if (final_hi)
-    form_x(c[0], 1.f, PrecTag<Prec::TF32X3>{});
-  else
-    form_x(c[0], 1.f, PrecTag<Prec::ONE_PASS_BF16>{});
+  // G = herm(c_0 I + A b_1 - b_2), final_hi: the product in 3xTF32 from the
+  // fp32 planes, through the stage
+  {
+    CAcc acc[NPW];
+    if (final_hi) {
+      CAcc acc1[1][NPW];
+      const float* const lr[1] = {Ar};
+      const float* const li[1] = {Ai};
+      tcp::band_product<P, 1, tcp::Prec::TF32X3>(cluster, b1r, b1i, lr, li, stage, m, acc1);
+      __syncthreads();  // every warp is done with the stage
+#pragma unroll
+      for (int jj = 0; jj < NPW; ++jj) acc[jj] = acc1[0][jj];
+    } else {
+      packed_product<P>(cluster, Apk, Bop, m, acc);
+    }
+    form_x(c[0], 1.f, acc);
+  }
   {
     float hr[NPW][4], hi[NPW][4];
     herm(hr, hi);

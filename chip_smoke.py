@@ -216,8 +216,9 @@ PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 # K4/K5's body (csrc/cheb_filter.cu), named in the kernels summary
 CHEB_FWD_BODY = ("one thread-block cluster of P / 16 CTAs per matrix, bands in shared "
-                 "memory, one-pass bf16 mma.sync products (tc_product.cuh; the closing "
-                 "product 3xTF32 with final_hi)")
+                 "memory, A and b_1 packed once as bf16 fragments and pulled by each warp "
+                 "over distributed shared memory, one-pass bf16 mma.sync products (the "
+                 "closing product 3xTF32 through tc_product.cuh with final_hi)")
 # K1's and K7's body (csrc/polar_cta.cuh), named in the kernels summary
 POLAR_BODY = ("one CTA per matrix or instance (a cluster of two at P = 128), the planes in "
               "shared memory, each whole product a mma.sync product of the CTA "
@@ -587,9 +588,9 @@ def solve_flops(n_inst_iters: int, nsteps: int, n: int = 100) -> float:
 
 def cheb_fwd_smem_bytes(P: int) -> int:
     """cheb_filter.cu's dynamic shared memory a CTA: 6 band planes of
-    16 (P + 4) floats, the staging double buffer of 4 x 16 (P + 8) and 16
-    floats of partials and slot."""
-    return 4 * (6 * 16 * (P + 4) + 4 * 16 * (P + 8) + 16)
+    16 (P + 4) floats, the stage of 4 x 16 (P + 8), the packed bf16 A and
+    b_1 (P / 16 x 1536 B each) and 16 floats of partials and slot."""
+    return 4 * (6 * 16 * (P + 4) + 4 * 16 * (P + 8) + 16) + 2 * (P // 16) * 1536
 
 
 def tc_solve_smem_bytes(P: int) -> int:

@@ -51,6 +51,48 @@ K5_ONE_PASS = 1e-2
 # 5.9e-3, within K4_ONE_PASS's max
 K4_SPIKED_SPREAD = 1.4
 
+# K4's and K5's output bits on fixed inputs, pinned by the SHA-256 digests
+# of tests/golden/cheb_fwd_digest.json: (m, B, seed) at P = 112 and P = 128,
+# degree 48, each with final_hi off and on
+CHEB_BIT_CASES = ((101, 32, 7), (126, 16, 8))
+CHEB_BIT_DEGREE = 48
+CHEB_BIT_ARRAYS = ("K4.Gr", "K4.Gi", "K5.Gr", "K5.Gi", "K5.b1r", "K5.b1i", "K5.b2r", "K5.b2i")
+
+
+def cheb_bit_case(m: int, B: int, seed: int, final_hi: bool) -> str:
+    """The key of one case in the golden file."""
+    return f"m={m} B={B} seed={seed} final_hi={int(final_hi)}"
+
+
+def cheb_fwd_digests(kc, dev) -> dict:
+    """{case: {array: SHA-256 hex of its float32 bytes}} of K4's output planes
+    (Gr, Gi) and K5's (Gr, Gi and the carries b1r, b1i, b2r, b2i), as
+    ``kc.cheb_filter_planes`` returns them (zero-padded to P), on random
+    Hermitian matrices whose second half has a dominant eigenvalue, drawn
+    with numpy from each case's seed."""
+    import hashlib
+
+    out = {}
+    for m, B, seed in CHEB_BIT_CASES:
+        rng = np.random.default_rng(seed)
+        X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+        M = (X + X.conj().transpose(0, 2, 1)) / 2
+        v = rng.normal(size=(B // 2, m)) + 1j * rng.normal(size=(B // 2, m))
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        M[B // 2:] += 300.0 * v[:, :, None] * v.conj()[:, None, :]
+        c = (rng.normal(size=(B, CHEB_BIT_DEGREE)) * 0.3).astype(np.float32)
+        M = torch.from_numpy(np.ascontiguousarray(M, np.complex64)).to(dev)
+        c = torch.from_numpy(c).to(dev)
+        for final_hi in (False, True):
+            Gr, Gi, _ = kc.cheb_filter_planes(M, c, CHEB_BIT_DEGREE, final_hi)
+            Gr5, Gi5, carries = kc.cheb_filter_planes(M, c, CHEB_BIT_DEGREE, final_hi,
+                                                      carries=True)
+            arrays = dict(zip(CHEB_BIT_ARRAYS, (Gr, Gi, Gr5, Gi5, *carries)))
+            out[cheb_bit_case(m, B, seed, final_hi)] = {
+                k: hashlib.sha256(x.float().cpu().numpy().tobytes()).hexdigest()
+                for k, x in arrays.items()}
+    return out
+
 # K6 vs its plain version at its tier, per matrix (measured by
 # tests/one_pass_spread.py and on an H100): the split tier vs the rounded
 # split emulation (Mbar median 2.6e-6, max 7.5e-6, cbar max 2.7e-5; the

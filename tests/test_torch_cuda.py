@@ -36,7 +36,9 @@ as far as the kernel sits from it (tests/one_pass_spread.py on an H100),
 so they are held to twice that (K2_ONE_PASS_EDGES).
 """
 
+import json
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -60,6 +62,7 @@ from admmnet_tpu_torch.peaks.search import find_peaks_plain
 from admmnet_tpu_torch.solver import admm_solve_fixed
 from admmnet_tpu_torch.solver.admm import fused_kernel_options
 from card_checks import (
+    CHEB_BIT_DEGREE,
     EIGH_GLAYER_GRAD_TOL,
     EIGH_GLAYER_TOL,
     EIGH_ORTH_TOL,
@@ -80,6 +83,7 @@ from card_checks import (
     peak_height_gap,
     peak_lists_held,
     peak_lists_match,
+    cheb_fwd_digests,
     rel_err,
 )
 
@@ -550,6 +554,31 @@ def test_cheb_fwd_kernel_edges(cuda, degree, m):
     for k, e, e64 in zip(carries, emul, emul64):
         assert torch.equal(k[-1, :m, :m], e[-1])
         _near_emulation(k[:-1, :m, :m], e[:-1], e64[:-1])
+
+
+CHEB_DIGEST = Path(__file__).resolve().parent / "golden" / "cheb_fwd_digest.json"
+
+
+@pytest.mark.cuda
+def test_cheb_fwd_kernel_bits(cuda):
+    """K4's and K5's output bits: the SHA-256 digests of K4's G and of K5's
+    G and four carries (float32 planes) on fixed inputs at m = 101 (P =
+    112) and m = 126 (P = 128), degree 48, final_hi off and on
+    (card_checks.cheb_fwd_digests), equal to tests/golden/cheb_fwd_digest.json,
+    made on an H100 by tests/golden/make_cheb_digest.py from the tree whose
+    kernel staged b_1 as fp32 and rounded every fragment as it loaded it.
+    A change of the kernel's layout, staging or schedule keeps these bits.
+    A change that alters them on purpose (another rounding, pairing of k,
+    band or summation order) regenerates the file with that script and
+    says why in CHANGES.md."""
+    want = json.loads(CHEB_DIGEST.read_text())
+    assert want["degree"] == CHEB_BIT_DEGREE
+    got = cheb_fwd_digests(kc, cuda)
+    assert got.keys() == want["digests"].keys()
+    for case, digests in got.items():
+        assert digests["K5.Gr"] == digests["K4.Gr"] and digests["K5.Gi"] == digests["K4.Gi"]
+        differ = sorted(k for k, v in digests.items() if want["digests"][case][k] != v)
+        assert not differ, f"{case}: {differ} differ from the golden bits"
 
 
 @pytest.mark.cuda
