@@ -25,7 +25,8 @@ bounds it.
   autograd, with V detached: the gradient flows through the eigenvalues
   only, M_bar = V diag(w_bar) V^H, what ``torch.linalg.eigh``'s backward
   gives when V carries no gradient.  It launches the kernel, so M is what
-  ``eigh_kernel`` takes: a larger side, or a CPU tensor, raises.
+  ``eigh_kernel`` takes: a larger side, or a CPU tensor, raises.  Its
+  backward is the span ``models.eigh_bwd``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from admmnet_tpu_torch.kernels import _build
+from admmnet_tpu_torch.utils import profiling
 from admmnet_tpu_torch.utils.profiling import LaunchCounter
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
@@ -186,8 +188,9 @@ class _EighDetached(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, w_bar, _):
-        (V,) = ctx.saved_tensors
-        return (V * w_bar.to(V.dtype)[..., None, :]) @ torch.conj(V.transpose(-1, -2))
+        with profiling.span("models.eigh_bwd"):
+            (V,) = ctx.saved_tensors
+            return (V * w_bar.to(V.dtype)[..., None, :]) @ torch.conj(V.transpose(-1, -2))
 
 
 def eigh_detached(M: torch.Tensor):

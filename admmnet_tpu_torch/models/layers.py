@@ -167,6 +167,7 @@ class GLayer(nn.Module):
                                               self.cheb_degree, self.cheb_precision)
                 return hermitianize(G)
 
+            close = profiling.backward_span("models.glayer_bwd", M)
             with profiling.span("models.eigh"):
                 if M.is_cuda:
                     from admmnet_tpu_torch.kernels.eigh import eigh_detached
@@ -178,7 +179,7 @@ class GLayer(nn.Module):
                     V = V.to(COMPLEX).detach()
             w_new = self.spectral_filter(w).to(COMPLEX)
             G = (V * w_new[..., None, :]) @ torch.conj(V.transpose(-1, -2))
-            return hermitianize(G)
+            return close(hermitianize(G))
 
 
 class ZLayer(nn.Module):

@@ -9,6 +9,9 @@
   host-clock seconds and a count to an in-memory registry; otherwise it
   costs one ``torch.autograd._profiler_enabled()`` check and records
   nothing;
+- ``backward_span(name, x)``: a span around the backward of the work
+  between ``x`` and the output handed to the ``close`` it returns (two
+  tensor hooks, set only while a profiler records);
 - ``snapshot()``: the registry, ``{name: {"count", "host_s"}}`` of the
   newest profiling session, beside every kernel's launch count
   (``launches.<kernel>: {"count"}``);
@@ -36,9 +39,13 @@ The spans the program opens, by where they are:
   (the zoom and the final sort);
 - ``solver.solve``: ``solver/admm.py``'s ``admm_solve_fixed``;
 - ``models.glayer``: ``GLayer.forward``; ``models.glayer_bwd``: the
-  Clenshaw backward that launches K6 (``kernels/cheb_filter.py``);
+  Clenshaw backward that launches K6 (``kernels/cheb_filter.py``), or the
+  whole backward of an eigh GLayer (``backward_span``: the rebuild's
+  product, the filter and the eigendecomposition's backward);
   ``models.eigh``: the eigh GLayer's eigendecomposition inside
-  ``models.glayer`` (on the card the Jacobi kernel, ``launches.eigh``).
+  ``models.glayer`` (on the card the Jacobi kernel, ``launches.eigh``);
+  ``models.eigh_bwd``: its backward, M_bar = V diag(w_bar) V^H
+  (``kernels/eigh.py``), inside ``models.glayer_bwd``.
 """
 
 from __future__ import annotations
@@ -141,6 +148,36 @@ def end(token) -> None:
     """Close the span ``begin`` opened."""
     if token is not None:
         _close(token)
+
+
+def _same(y):
+    return y
+
+
+def backward_span(name: str, x: torch.Tensor):
+    """``close``: autograd runs the backward of the work from ``x`` to the
+    ``y`` of ``close(y)`` inside span ``name``, opened by a hook on ``y`` as
+    its gradient arrives and closed by one on ``x`` as its gradient is
+    whole.  Only while a profiler records and ``x`` needs a gradient;
+    otherwise ``close`` is the identity and no hook is set."""
+    if not (_profiler_enabled() and x.requires_grad and torch.is_grad_enabled()):
+        return _same
+    token = [None]
+
+    def opens(g):
+        token[0] = begin(name)
+
+    def closes(g):
+        end(token[0])
+        token[0] = None
+
+    x.register_hook(closes)
+
+    def close(y):
+        y.register_hook(opens)
+        return y
+
+    return close
 
 
 def snapshot() -> Dict[str, Dict[str, float]]:

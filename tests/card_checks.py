@@ -254,6 +254,21 @@ EIGH_W_TOL = 5e-6
 # filter's rebuild; the gradient flows through fp32 eigenvectors twice
 EIGH_GLAYER_TOL = 1e-4
 EIGH_GLAYER_GRAD_TOL = 1e-3
+# one training step of upstream's published net (runs/admmnet10, ten eigh
+# GLayers, the attention head with dropout) at B = 256 on the kernel route
+# against the same step with each eigendecomposition in complex128 (the
+# same batch and masks): the loss, relative; by the worst leaf whose
+# gradient is at least a thousandth of the median leaf's, the clipped
+# gradient and the first AdamW update, each ||x - x_ref|| / ||x_ref||.
+# The kernel's eigenvalues carry ~1e-6 of the spectrum (EIGH_W_TOL's
+# reading), which nine layers carry into the loss and the gradient; the
+# first update is lr sign(g) entry by entry, so an entry whose gradient is
+# round-off may flip.  Measured on an H100 (the inputs are fixed): loss
+# 2.4e-7, gradient 2.5e-4, update 6.2e-4; the limits are 4-8 times those,
+# the gradient's EIGH_GLAYER_GRAD_TOL.
+EIGH_TRAIN_LOSS_TOL = 2e-6
+EIGH_TRAIN_GRAD_TOL = 1e-3
+EIGH_TRAIN_STEP_TOL = 5e-3
 
 
 def eigh_edge_batch(m: int, dev) -> dict:

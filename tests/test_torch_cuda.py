@@ -67,6 +67,9 @@ from card_checks import (
     EIGH_GLAYER_TOL,
     EIGH_ORTH_TOL,
     EIGH_REC_TOL,
+    EIGH_TRAIN_GRAD_TOL,
+    EIGH_TRAIN_LOSS_TOL,
+    EIGH_TRAIN_STEP_TOL,
     EIGH_W_TOL,
     K1_ONE_PASS,
     K1_PLAIN,
@@ -948,3 +951,68 @@ def test_eigh_glayer_kernel_route_matches_complex128(cuda, B, trained):
     for a, b in zip(g_k, g_p):
         gap = float(torch.linalg.norm((a - b).reshape(-1)) / torch.linalg.norm(b.reshape(-1)))
         assert gap <= EIGH_GLAYER_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_eigh_net_train_step_matches_complex128_route(cuda, monkeypatch):
+    """One step of upstream's training recipe (``build_steps(mode="e2e")``,
+    slot pairing, clip 1.0, AdamW in two groups) on runs/admmnet10's net at
+    B = 256 on the card, its nine eigh GLayers on the Jacobi kernel,
+    against the same step with every eigendecomposition in complex128
+    (``hermitian_eigh``) on the same batch with the same dropout masks:
+    the loss, the clipped gradient and the update by the worst leaf
+    (EIGH_TRAIN_*)."""
+    from admmnet_tpu_torch.core.config import DataConfig, TrainConfig
+    from admmnet_tpu_torch.core.convert import options_from_jax, params_from_jax
+    from admmnet_tpu_torch.data.generator import generate_batch
+    from admmnet_tpu_torch.kernels import eigh as ke
+    from admmnet_tpu_torch.models import ADMMNet
+    from admmnet_tpu_torch.ops.projections import hermitian_eigh
+    from admmnet_tpu_torch.train.checkpoint import restore_checkpoint
+    from admmnet_tpu_torch.train.trainer import batch_to_device, build_steps, make_optimizer
+
+    run_dir = Path(__file__).resolve().parents[1] / "runs" / "admmnet10"
+    cfg = options_from_jax(json.loads((run_dir / "config.json").read_text())["model"])
+    params = params_from_jax(restore_checkpoint(run_dir)[0]["params"]["params"], cfg)
+    tcfg = TrainConfig(batch_size=256, assignment="slot")
+    data = generate_batch(DataConfig(spec=cfg.spec, snr_range=(20.0, 20.0)), 256,
+                          torch.Generator(device=cuda).manual_seed(5), cuda)
+    batch = batch_to_device({k: data[k] for k in ("y", "b", "sigma", "tau", "f", "L_true")},
+                            cuda)
+
+    def one_step():
+        net = ADMMNet(cfg)
+        net.load_state_dict(params)
+        net = net.to(cuda)
+        net.peak_head.attention.dropout_generator = torch.Generator(device=cuda).manual_seed(7)
+        opt = make_optimizer(net, tcfg)
+        step, _ = build_steps(net, opt, "e2e", lambda s: tcfg.lr, grad_clip=tcfg.grad_clip,
+                              assignment="slot")
+        loss = float(step(batch, 0))
+        return (loss, {k: p.grad.detach().clone() for k, p in net.named_parameters()},
+                {k: (p.detach() - params[k].to(cuda)) for k, p in net.named_parameters()})
+
+    before = ke.launches.count
+    loss_k, grad_k, upd_k = one_step()
+    assert ke.launches.count == before + cfg.num_layers - 1
+
+    def complex128_route(M):
+        w, V = hermitian_eigh(M)
+        return w.to(torch.float32), V.to(torch.complex64).detach()
+
+    monkeypatch.setattr(ke, "eigh_detached", complex128_route)
+    loss_r, grad_r, upd_r = one_step()
+    norms = {k: float(torch.linalg.vector_norm(g)) for k, g in grad_r.items()}
+    med = float(np.median(list(norms.values())))
+    keep = [k for k, v in norms.items() if v >= 1e-3 * med]
+
+    def worst(x, r):
+        return max(float(torch.linalg.vector_norm(x[k] - r[k]) / torch.linalg.vector_norm(r[k]))
+                   for k in keep)
+
+    gaps = (abs(loss_k - loss_r) / abs(loss_r), worst(grad_k, grad_r), worst(upd_k, upd_r))
+    print(f"eigh train step on the card: loss {gaps[0]:.3e} gradient {gaps[1]:.3e} "
+          f"update {gaps[2]:.3e} ({len(keep)} of {len(norms)} leaves)")
+    assert gaps[0] <= EIGH_TRAIN_LOSS_TOL
+    assert gaps[1] <= EIGH_TRAIN_GRAD_TOL
+    assert gaps[2] <= EIGH_TRAIN_STEP_TOL

@@ -135,3 +135,76 @@ def test_attention_weights_reader_matches_params_from_jax():
     assert set(sd) == set(want)
     for k, v in want.items():
         assert sd[k].shape == v.shape and torch.equal(sd[k], v), k
+
+
+def test_eigh_net_train_step_matches_jax(monkeypatch):
+    """One step of upstream's training of the eigh net from the same weights
+    on the same batch: the port's ``build_steps(mode="e2e")`` against the
+    JAX package's ``jax.value_and_grad`` of ``basic_anm_loss`` and its
+    trainer's optimizer (clip 1.0, AdamW in two groups), the head's dropout
+    off on both sides.  The loss, every leaf's clipped gradient and every
+    leaf after the update, each leaf's distance over the largest leaf norm
+    of the JAX side's.  Tolerances: the forward's 1e-4 (module docstring)
+    for the loss and the gradient, which the eigensolves' precisions carry
+    through the backward alike; 1e-4 for the update, whose AdamW first step
+    moves each element by about the learning rate whatever the gradient's
+    size, so a leaf's gradient near zero can move it by up to lr."""
+    import optax
+
+    from admmnet_tpu.train.losses import basic_anm_loss as jloss
+    from admmnet_tpu.train.trainer import make_optimizer as jmake_optimizer
+    from admmnet_tpu_torch.core.config import TrainConfig
+    from admmnet_tpu_torch.models import peak_head
+    from admmnet_tpu_torch.train.schedules import sgdr_schedule
+    from admmnet_tpu_torch.train.trainer import build_steps, make_optimizer
+
+    jc, params, sd = _random_net()
+    y, b, s = _scenes()
+    rng = np.random.default_rng(9)
+    L = SPEC["L_max"]
+    tau = rng.uniform(0.1, 0.9, size=(B, L)).astype(np.float32)
+    f = rng.uniform(-0.4, 0.4, size=(B, L)).astype(np.float32)
+    L_true = rng.integers(0, L + 1, size=B).astype(np.int32)
+    train = {"batch_size": B, "epochs": 4, "lr": 1e-3, "admm_lr_scale": 0.5,
+             "weight_decay": 1e-3, "grad_clip": 1.0, "sgdr_t0": 1, "sgdr_t_mult": 2,
+             "lr_min": 1e-6, "assignment": "slot", "spectral_weight": 0.0}
+    per_epoch = 3
+
+    model = JADMMNet(cfg=jc)
+
+    def loss(p):
+        tau_p, f_p, conf, phi = model.apply({"params": p}, *map(jnp.asarray, (y, b, s)),
+                                            deterministic=True)
+        return jloss(tau_p, f_p, conf, phi, tau, f, L_true, assignment="slot",
+                     spectral_weight=0.0, spec=jc.spec)[0]
+
+    p0 = jax.tree_util.tree_map(jnp.asarray, params)
+    j_loss, j_grad = jax.value_and_grad(loss)(p0)
+    clip = optax.clip_by_global_norm(train["grad_clip"])
+    j_clipped = flax_to_state_dict(clip.update(j_grad, clip.init(p0))[0])
+    tx = jmake_optimizer(jcfg._from_dict(jcfg.TrainConfig, train), per_epoch,
+                         admm_modules=JADMMNet.ADMM_LR_MODULES)
+    updates, _ = tx.update(j_grad, tx.init(p0), p0)
+    j_after = flax_to_state_dict(optax.apply_updates(p0, updates))
+
+    monkeypatch.setattr(peak_head, "ATTENTION_DROPOUT", 0.0)
+    net = _port(sd)
+    tcfg = TrainConfig(**train)
+    opt = make_optimizer(net, tcfg)
+    schedule = sgdr_schedule(tcfg.lr, per_epoch, tcfg.epochs, tcfg.sgdr_t0, tcfg.sgdr_t_mult,
+                             tcfg.lr_min)
+    step, _ = build_steps(net, opt, "e2e", schedule, grad_clip=tcfg.grad_clip,
+                          assignment="slot", spectral_weight=0.0)
+    batch = {"y": y, "b": b, "sigma": s, "tau": tau, "f": f, "L_true": L_true}
+    t_loss = float(step({k: torch.from_numpy(v) for k, v in batch.items()}, 0))
+    leaves = dict(net.named_parameters())
+    assert set(leaves) == set(j_clipped) == set(j_after)
+
+    def gap(x, ref):
+        top = max(float(np.linalg.norm(np.asarray(v))) for v in ref.values())
+        return max(float(np.linalg.norm(x[k].detach().numpy() - np.asarray(ref[k]))) / top
+                   for k in ref)
+
+    assert abs(t_loss - float(j_loss)) <= TOL * abs(float(j_loss))
+    assert gap({k: p.grad for k, p in leaves.items()}, j_clipped) <= TOL
+    assert gap(leaves, j_after) <= TOL
